@@ -1,0 +1,32 @@
+"""openess_tpu_torch: the PyTorch/CUDA port of ``openess_tpu``.
+
+The JAX package stays the reference; this package computes the same
+functions with PyTorch, and every TPU (Pallas) kernel on a ported path is a
+kernel written by hand for Hopper (``sm_90a``): CUDA C++ under ``csrc/``
+built with ``nvcc`` at first use, or Triton. Each kernel wrapper keeps a
+plain PyTorch version beside it, which it takes only for tensors on the CPU.
+
+Ported so far: the streaming segmentation server (``serve_stream``):
+event wire -> K1 voxelizer -> E2VID step (K3 gate kernel when
+``tpu.e2vid_fused_gates``) -> SemSegE2VID head -> uint8 labels.
+
+Module names follow ``openess_tpu`` so each counterpart is easy to find.
+Public functions keep the JAX package's NHWC layouts; convolutions run on
+NCHW views of channels-last tensors inside.
+"""
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another one. Raises when CUDA is asked for (the default) and no GPU is
+    present, so a run never lands on the CPU by accident."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' "
+            "(--device cpu) to run on the CPU"
+        )
+    return dev

@@ -1,0 +1,124 @@
+// K1: signed trilinear splat of the sorted-chunk event wire into per-window
+// voxel grids, for Hopper (sm_90a).
+//
+// Replaces openess_tpu/ops/voxelize_chunked.py:_tri_kernel (reached through
+// _call and voxelize_chunked_trilinear). It computes the same function:
+// each event of a chunk adds v * wx * wy * wt to the 8 corners
+// {x0, x0+1} x {y0, y0+1} x {t0, t0+1} of its dequantized coordinates, with
+// the corners truncated toward zero (a C (int) cast, torch .int()) and
+// w = 1 - |corner - coord|. For a fractional negative coordinate this keeps
+// the reference's negative weight on the +1 corner. A corner is kept only
+// inside [0, bins) x [0, H) x [0, W) and inside the chunk's block of the
+// TPU kernel's padded grid, rows [r0, r0 + 24) and columns [c0, c0 + 256),
+// so a malformed descriptor drops corners exactly as the TPU kernel does.
+// The wire is dequantized here, fused (the TPU path's _prep pass): x, y =
+// int16 / 32; tn = (bins - 1) * t * (1 / 65535) for the uint16 wire (v2) or
+// (bins - 1) * t / max(t_range, 1e-9) for the f32 wire (v1); v = 2p - 1.
+// All arithmetic is f32. The TPU kernel multiplies in bf16 on its matrix
+// unit; that rounding is an artefact of the unit and is not reproduced.
+//
+// What bounds it on an H100: per 100k-event window it reads ~0.7 MB of wire
+// (7 B/event) and writes a 5 x 480 x 640 f32 grid (6.1 MB), a few
+// microseconds of HBM traffic, but it issues 800k f32 atomicAdds into that
+// grid, which resolve in L2. This first design is one block per
+// (window, chunk), threads striding over the chunk's events, atomics
+// straight into global memory; the wrapper zero-fills the grid. A chunk's
+// events all land in one 24 x 256 block of rows and columns, so a later
+// version can accumulate each chunk's bins x 17 x 257 corner footprint in
+// shared memory and flush it once, turning most global atomics into
+// shared-memory ones.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kInvFixedPoint = 1.0f / 32.0f;  // FIXED_POINT = 32
+constexpr int kRowsBlock = 24;                  // _ROWS_TRI
+constexpr int kColsBlock = 256;                 // _COLS_TRI
+constexpr int kThreads = 256;
+
+template <bool kT16>
+__global__ void __launch_bounds__(kThreads)
+tri_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
+          const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
+          const int32_t* __restrict__ counts, const int32_t* __restrict__ desc,
+          const float* __restrict__ t_range, float* __restrict__ out,
+          int nbc, int chunk, int bins, int height, int width, int r0_max,
+          int c0_max) {
+  const int w = blockIdx.y;
+  const long long wc = (long long)w * nbc + blockIdx.x;
+  const int n = min(counts[wc], chunk);
+  if (n <= 0) return;
+  // packed descriptor: row offset | (col offset << 16), clamped as the
+  // TPU wrapper clamps it (voxelize_chunked.py:498-501)
+  const int d = desc[wc];
+  const int r0 = min(max(d & 0xFFFF, 0), r0_max);
+  const int c0 = min(max(d >> 16, 0), c0_max);
+  const int row_hi = min(r0 + kRowsBlock, height);
+  const int col_hi = min(c0 + kColsBlock, width);
+  const float tb = (float)(bins - 1);
+  const float rng = kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f);
+  float* grid = out + (long long)w * bins * height * width;
+  const long long base = wc * chunk;
+
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const long long s = base + e;
+    const float x = (float)xq[s] * kInvFixedPoint;
+    const float y = (float)yq[s] * kInvFixedPoint;
+    float tn;
+    if (kT16) {
+      tn = tb * (float)((const uint16_t*)t_rel)[s] * (1.0f / 65535.0f);
+    } else {
+      tn = tb * ((const float*)t_rel)[s] / rng;
+    }
+    const float v = 2.0f * (float)pq[s] - 1.0f;
+    const int x0 = (int)x, y0 = (int)y, t0 = (int)tn;
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx) {
+      const int cx = x0 + dx;
+      if (cx < c0 || cx >= col_hi || cx < 0) continue;
+      const float wx = v * (1.0f - fabsf((float)cx - x));
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const int cy = y0 + dy;
+        if (cy < r0 || cy >= row_hi || cy < 0) continue;
+        const float wxy = wx * (1.0f - fabsf((float)cy - y));
+#pragma unroll
+        for (int dt = 0; dt < 2; ++dt) {
+          const int ct = t0 + dt;
+          if (ct < 0 || ct >= bins) continue;
+          const float wt = 1.0f - fabsf((float)ct - tn);
+          atomicAdd(grid + ((long long)ct * height + cy) * width + cx,
+                    wxy * wt);
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// Plain C entry for ctypes. Pointers are device pointers; out must hold
+// nw * bins * height * width zeros. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int voxelize_chunked_trilinear(
+    const void* xq, const void* yq, const void* pq, const void* t_rel,
+    const void* counts, const void* desc, const void* t_range, void* out,
+    int nw, int nbc, int chunk, int bins, int height, int width, int r0_max,
+    int c0_max, int t16, void* stream) {
+  if (nw <= 0 || nbc <= 0 || chunk <= 0) return 0;
+  const dim3 grid(nbc, nw);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (t16) {
+    tri_splat<true><<<grid, kThreads, 0, st>>>(
+        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+        (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max);
+  } else {
+    tri_splat<false><<<grid, kThreads, 0, st>>>(
+        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+        (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max);
+  }
+  return (int)cudaGetLastError();
+}

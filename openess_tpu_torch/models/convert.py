@@ -1,0 +1,86 @@
+"""JAX (flax) parameter trees -> ``state_dict``s of the port's modules.
+
+The inverse of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``
+and ``convert_semseg_e2vid``: the trees are nested dicts of numpy arrays,
+the state-dict keys are the reference's. Layout rules:
+
+- conv            flax HWIO ``[kh, kw, I, O]`` -> torch OIHW ``[O, I, kh, kw]``
+- transposed conv ``ConvTranspose2dTorch`` ``[kh, kw, O, I]`` ->
+  torch ``ConvTranspose2d`` ``[I, O, kh, kw]`` (no flip: the JAX module
+  flips at apply time)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))  # a writable copy
+
+
+def _conv(sd: dict, name: str, p: dict):
+    sd[name + ".weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    if "bias" in p:
+        sd[name + ".bias"] = _t(p["bias"])
+
+
+def e2vid_state_dict_from_jax(params: dict, prefix: str = "unetrecurrent.") -> dict:
+    """E2VID params -> ``state_dict`` of :class:`E2VIDStreamingStep` /
+    :class:`E2VIDReconstructor` (keys under ``prefix``; pass ``""`` for a
+    bare :class:`UNetRecurrent`).
+
+    ``params`` is the UNet tree (``head``, ``encoders_{i}/conv``, ...) or a
+    tree that holds it as ``step/unet`` (the streaming step, the
+    reconstructor and ``build_models``' ``front_sensor_b``). A latent-only
+    tree has no decode path and gives no decode keys.
+    """
+    if "step" in params:
+        params = params["step"]["unet"]
+    sd: dict = {}
+    _conv(sd, prefix + "head.conv2d", params["head"]["conv2d"])
+    i = 0
+    while f"encoders_{i}/conv" in params:
+        e = f"{prefix}encoders.{i}."
+        _conv(sd, e + "conv.conv2d", params[f"encoders_{i}/conv"]["conv2d"])
+        _conv(sd, e + "recurrent_block.Gates",
+              params[f"encoders_{i}/lstm"]["gates"])
+        i += 1
+    i = 0
+    while f"resblocks_{i}" in params:
+        for c in ("conv1", "conv2"):
+            _conv(sd, f"{prefix}resblocks.{i}.{c}", params[f"resblocks_{i}"][c])
+        i += 1
+    i = 0
+    while f"decoders_{i}" in params:
+        p = params[f"decoders_{i}"]
+        name = f"{prefix}decoders.{i}.transposed_conv2d"
+        sd[name + ".weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        sd[name + ".bias"] = _t(p["bias"])
+        i += 1
+    if "pred" in params:
+        _conv(sd, prefix + "pred.conv2d", params["pred"]["conv2d"])
+    return sd
+
+
+def semseg_state_dict_from_jax(params: dict, text) -> dict:
+    """SemSegE2VID params and text embeddings ``[C, 512]`` -> ``state_dict``
+    of :class:`SemSegE2VID`."""
+    sd: dict = {}
+    for i in range(5):
+        r = params[f"ds1_res{i}"]
+        _conv(sd, f"decoder_scale_1.{i}.model.0", r["conv1"])
+        _conv(sd, f"decoder_scale_1.{i}.model.3", r["conv2"])
+    for jax_name, torch_name in (
+        ("ds1_conv", "decoder_scale_1.5"),
+        ("ds2_conv1", "decoder_scale_2.0"),
+        ("ds2_conv2", "decoder_scale_2.1"),
+        ("ds3_conv1", "decoder_scale_3.0"),
+        ("ds3_conv2", "decoder_scale_3.1"),
+        ("ds4_conv", "decoder_scale_4.0"),
+    ):
+        _conv(sd, torch_name + ".model.0", params[jax_name]["conv"])
+    _conv(sd, "decoder_ch256.0", params["decoder_ch256"])
+    _conv(sd, "decoder_ch512.0", params["decoder_ch512"])
+    sd["text_embeddings"] = _t(text)
+    return sd

@@ -1,0 +1,82 @@
+"""Build the CUDA C++ kernels under ``csrc/`` with ``nvcc`` and load them.
+
+Each source compiles on its own into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), loaded with
+``ctypes``. Libraries go to ``openess_tpu_torch/_build/``, named by a hash
+of the source and the flags, so an edited source is never served from a
+stale build. The build runs at first use, in the process that launches the
+kernel; nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+            "kernels of openess_tpu_torch are built from source at first use"
+        )
+    return found
+
+
+def library_path(source: str) -> str:
+    """Where the library for ``csrc/<source>`` lives once built."""
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its library exists; return its
+    path. The compiler's output (``-Xptxas -v``: registers, shared memory,
+    spills) is kept beside the library as ``.log``."""
+    out = library_path(source)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.splitext(out)[0] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {source} (exit {proc.returncode}):\n"
+            f"{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>`` once per process."""
+    with _LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(build(source))
+            _LIBS[source] = lib
+        return lib

@@ -1,0 +1,132 @@
+"""The port stands alone: ``openess_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor anything of the JAX package, and the port's own copy of the
+settings parser reads every config as the JAX package's does."""
+import ast
+import dataclasses
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "openess_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "openess_tpu")
+
+
+def _port_files():
+    files = sorted(glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True))
+    return files + [os.path.join(ROOT, "chip_smoke.py")]
+
+
+def test_port_imports_with_jax_blocked():
+    """Every module imports with ``jax`` (and the packages the card machine
+    may lack: yaml, PIL, pandas, triton) blocked, and no ``openess_tpu``
+    module gets loaded on the way."""
+    code = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "yaml", "PIL", "pandas", "triton"):
+    sys.modules[name] = None
+import openess_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    openess_tpu_torch.__path__, "openess_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "openess_tpu" or m.startswith("openess_tpu."))
+assert not bad, bad
+print(len(names))
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.strip()) >= 15  # every module of the slice
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and node.args and isinstance(
+            node.args[0], ast.Constant
+        ) and isinstance(node.args[0].value, str):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(
+                fn, "id", "")
+            if name in ("import_module", "__import__"):
+                yield node.args[0].value.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_jax_package_in_source(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set(_imported_roots(tree))
+    assert not roots & set(FORBIDDEN), sorted(roots & set(FORBIDDEN))
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
+
+
+CONFIGS = [
+    "configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml",
+    "configs/pretrain/DDD17/frame2voxel_fcclip_sam.yaml",
+    "configs/linear_probe/DSEC/frame2recon_fcclip_slic.yaml",
+    "configs/synthetic_sup_only.yaml",
+]
+
+
+@pytest.mark.parametrize("cfg", CONFIGS)
+def test_settings_match_jax_field_by_field(cfg):
+    from openess_tpu.config.settings import load_settings as jload
+    from openess_tpu_torch.config.settings import load_settings as tload
+
+    js, ts = jload(os.path.join(ROOT, cfg)), tload(os.path.join(ROOT, cfg))
+    for f in dataclasses.fields(js):
+        if f.name == "logger":
+            continue
+        a, b = getattr(js, f.name), getattr(ts, f.name)
+        if f.name == "semseg_color_map":
+            assert (a == b).all()
+        else:
+            assert a == b, (f.name, a, b)
+    assert [f.name for f in dataclasses.fields(ts)] == [
+        f.name for f in dataclasses.fields(js)
+    ]
+
+
+def test_chip_smoke_settings_are_the_flagship_yaml():
+    """chip_smoke.py builds its settings in code (no PyYAML on the card
+    machine); they must equal the flagship YAML's."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from openess_tpu_torch.config.settings import load_settings
+
+    ref = load_settings(os.path.join(ROOT, CONFIGS[0]))
+    got = chip_smoke.flagship_settings()
+    for f in dataclasses.fields(ref):
+        if f.name in ("logger", "semseg_color_map"):
+            continue
+        assert getattr(got, f.name) == getattr(ref, f.name), f.name
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """With no CUDA device the smoke run exits non-zero and prints no
+    result line."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       capture_output=True, text=True, cwd=str(tmp_path),
+                       env=env, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
