@@ -3,24 +3,33 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds every kernel of the port's serving path from the sources in the
-checkout, holds each against its plain PyTorch version at the shapes the
-serving path gives it, times both, then drives the streaming segmentation
-server (``openess_tpu_torch.serve_stream``) at the full width of the
+It builds every kernel of the port's two main paths from the sources in the
+checkout, holds each against its plain PyTorch version at the shapes those
+paths give it, times both, then drives both paths at the full width of the
 flagship configuration (``configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml``:
-480x640 sensor cropped to 440x640, 5 bins, 100k events per window, the
-E2VID_lightweight UNet and the SemSegE2VID head, 11 classes, bf16) with
-seeded random weights, and checks what comes out. The settings are built
-in code from that YAML's values with ``config_option="frame2voxel"``, since
-PyYAML may be absent where the card is.
+480x640 sensor cropped to 440x640, 5 bins, T = 20 windows of 100k events,
+the E2VID_lightweight UNet, the SemSegE2VID head, 11 classes, the dilated
+ResNet-50 teacher at output stride 4, 100 superpixels per image, bf16) with
+seeded random weights, and checks what comes out:
 
-Phases: device, build, K1 vs plain, K3 vs plain, serving (S=1 with the
-plain gate path, S=1 with K3, S=8 with K3; the kernels' launch counters
-are zeroed before each run and read after it), an f32 reference check of
-the CUDA server against the same server on the CPU, and the summary. Any
-failure raises and the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``; before it come a ``{"kernels": [...]}``
-line and the ``nvidia-smi`` name and power limit.
+- the streaming segmentation server (``openess_tpu_torch.serve_stream``);
+- the pretrain ``frame2voxel`` trainer (``openess_tpu_torch.training``):
+  train steps on one synthetic batch, an eval step, a checkpoint written,
+  restored and served.
+
+The settings are built in code from that YAML's values, since PyYAML may be
+absent where the card is.
+
+Phases: device, build (one nvcc per source, started together, Triton
+beside them), K1 vs plain (NW = 8), K3 vs plain, K2 vs plain, serving (S=1
+with the plain gate path, S=1 with K3, S=8 with K3), a serving trace, an f32
+reference check of the CUDA server against the CPU server, packing one
+flagship batch, K1 vs plain at NW = 160, training, a training trace, an f32
+reference check of the CUDA train step against the CPU one, and the
+summary. The kernels' launch counters are zeroed before each main-path run
+and read after it. Any failure raises and the script exits non-zero. The
+last line is ``{"ok": true, "device": {...}}``; before it come a
+``{"kernels": [...]}`` line and the ``nvidia-smi`` name and power limit.
 
 No JAX and nothing of the JAX package is imported. Needs one CUDA card,
 ``nvcc`` (CUDA_HOME or /usr/local/cuda) and ``triton``.
@@ -31,6 +40,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -42,6 +52,11 @@ K1_REL_TOL = 1e-5           # kernel vs plain, of max|plain|: atomics order
 K3_ABS_SLACK = 1e-6         # K3: one bf16 ulp plus this near zero
 K3_SHAPES = ((220, 320, 64), (110, 160, 128), (55, 80, 256))  # 440x640, B=1
 REF_REL_TOL = 1e-3          # f32 server, CUDA vs CPU, of max|logits|
+K2_REL_TOL = 1e-5           # K2 sums vs plain, of max|plain|: atomics order
+TRAIN_LOSS_REL_TOL = 1e-3   # f32 train step, CUDA vs CPU, each loss
+TRAIN_GRAD_REL_TOL = 1e-3   # ... gradients of the head's plain convs
+TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
+TRAIN_STEPS = 8             # train steps driven on the flagship batch
 
 
 def flagship_settings(**overrides):
@@ -106,6 +121,489 @@ def phase(name):
     print(f"\n== {name}", flush=True)
 
 
+def block_superpixels(b, h, w, rows=10, cols=10):
+    """Grid-block superpixels ``[b, h, w]`` int32 with ids below
+    ``rows * cols``: spatially coherent, as SLIC gives and the synthetic
+    dataset builds."""
+    ry = np.minimum((np.arange(h) * rows) // h, rows - 1)
+    rx = np.minimum((np.arange(w) * cols) // w, cols - 1)
+    sp = (ry[:, None] * cols + rx[None, :]).astype(np.int32)
+    return np.broadcast_to(sp, (b, h, w)).copy()
+
+
+def k2_phase(torch, k2, dev, flush):
+    """K2 against its plain version at the train step's shape, on block
+    superpixels and on per-pixel random ids, bf16 and f32; the backward
+    gather against autograd of the plain version. Returns the kernel row
+    (bf16, block superpixels: what the train step launches)."""
+    phase("K2 segment_pool_sums vs plain ([8,440,640,256], S=800)")
+    B, H, W, D, S = 8, 440, 640, 256, 100
+    gen = torch.Generator(device=dev).manual_seed(1205)
+    seg = {
+        "block": torch.from_numpy(block_superpixels(B, H, W)).to(dev),
+        "random": torch.randint(0, S, (B, H, W), generator=gen, device=dev,
+                                dtype=torch.int32),
+    }
+    row, worst = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        feats = torch.randn((B, H, W, D), generator=gen,
+                            device=dev).to(dtype)
+        rows = feats.view(-1, D)
+        for pattern, sp in seg.items():
+            ids, total = k2.global_segment_ids(sp, S)
+            idl = ids.long()
+            run_k = lambda: k2.segment_pool_sums(rows, ids, total)
+            run_p = lambda: k2.segment_pool_sums_plain(rows, ids, total)
+            # library yardstick: one index_add_ of the f32 cast plus a
+            # bincount (timed here, used nowhere in the port)
+            run_l = lambda: (
+                torch.zeros((total, D), device=dev).index_add_(
+                    0, idl, rows.float()),
+                torch.bincount(idl, minlength=total),
+            )
+            (sk, ck), (sp_, cp) = run_k(), run_p()
+            sl, cl = run_l()
+            torch.cuda.synchronize()
+            err = (sk - sp_).abs().max().item()
+            scale = sp_.abs().max().item()
+            lib_err = (sl - sp_).abs().max().item()
+            counts_ok = bool(torch.equal(ck, cp)) and bool(
+                torch.equal(cl.float(), cp))
+            ok = err <= K2_REL_TOL * scale and counts_ok
+            ms_k = cuda_ms(torch, run_k, flush)
+            ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
+            ms_l = cuda_ms(torch, run_l, flush, iters=5, warmup=1)
+            nbytes = (rows.numel() * rows.element_size() + ids.numel() * 4
+                      + total * D * 4 + total * 4)
+            b_ms, b_by = bound(nbytes, rows.numel(), F32_OPS_PER_S)
+            tag = f"{str(dtype).split('.')[-1]}, {pattern} ids"
+            print(f"K2 [{tag}] max|kernel-plain| {err:.3e} (max|plain| "
+                  f"{scale:.2f}, bound {K2_REL_TOL:.0e} x max) counts "
+                  f"{'equal' if counts_ok else 'DIFFER'} "
+                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
+                  f"{ms_p:.4f} library_ms {ms_l:.4f} (index_add_ + bincount, "
+                  f"max|lib-plain| {lib_err:.3e}) bound_ms {b_ms:.4f} "
+                  f"({b_by}; {nbytes / 1e6:.1f} MB)")
+            if not ok:
+                raise AssertionError(
+                    f"K2 disagrees with its plain version [{tag}]: {err}")
+            worst = max(worst, err)
+            if dtype == torch.bfloat16 and pattern == "block":
+                row = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
+                           bound_ms=b_ms, bound_by=b_by)
+            elif dtype == torch.bfloat16:
+                row.update(ms_random_ids=ms_k, plain_ms_random_ids=ms_p,
+                           library_ms_random_ids=ms_l)
+            elif pattern == "block":
+                row.update(ms_f32=ms_k, bound_ms_f32=b_ms)
+            else:
+                row.update(ms_f32_random_ids=ms_k)
+        # backward: the gather, against autograd of the plain version
+        ids, total = k2.global_segment_ids(seg["block"], S)
+        ids[:1000] = -1  # skipped pixels must read a zero row
+        cot = torch.randn((total, D), generator=gen, device=dev)
+        grads = []
+        for fn in (k2.segment_pool_sums, k2.segment_pool_sums_plain):
+            leaf = rows.detach().clone().requires_grad_(True)
+            sums, _ = fn(leaf, ids, total)
+            (sums * cot).sum().backward()
+            grads.append(leaf.grad)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(grads[0], grads[1]))
+        print(f"K2 [{str(dtype).split('.')[-1]}] backward gather vs autograd "
+              f"of plain: dtype {grads[0].dtype}, "
+              f"{'identical' if same else 'DIFFERS'}; skipped rows zero: "
+              f"{bool((grads[0][:1000] == 0).all())}")
+        if not same or grads[0].dtype != dtype:
+            raise AssertionError("K2 backward disagrees with the plain one")
+        del feats, rows, grads, leaf, sums
+    return dict(
+        name="K2 segment_pool_sums (superpixel pooling)", route="cuda",
+        source="openess_tpu_torch/csrc/segment_pool.cu",
+        replaces="openess_tpu/ops/segment_pool.py:82",
+        max_abs_err=worst,
+        check=f"ok: max|kernel-plain| <= {K2_REL_TOL:g} x max|plain|, counts "
+              "equal; bf16 and f32, block and random ids; ms is bf16 on "
+              "block superpixels", **row,
+    )
+
+
+def flagship_batch(s, k1, batch=8, seed=0):
+    """One synthetic flagship batch on the host (numpy): uniform events on
+    the 480x640 sensor packed onto the wire, random frames, block
+    superpixels, and pseudo-labels constant per superpixel block drawn
+    from a skewed class distribution (so a few steps can lower the
+    pseudo-label loss by learning the class prior). Returns
+    ``(batch, pack seconds)``."""
+    from openess_tpu_torch.data.device_voxelize import pack_wire_batch
+
+    rng = np.random.default_rng(seed)
+    H, W = (int(v) for v in s.img_size_b)
+    T, K, C = s.nr_events_data_b, s.nr_events_window_b, s.semseg_num_classes
+    nw = batch * T
+    x = rng.uniform(0, 639, (nw, K)).astype(np.float32)
+    y = rng.uniform(0, 479, (nw, K)).astype(np.float32)
+    p = rng.integers(0, 2, (nw, K)).astype(np.float32)
+    t = np.sort(rng.uniform(0, 5e4, (nw, K)), axis=1)
+    t0 = time.perf_counter()
+    wire = k1.trim_wire_chunks(k1.chunk_events_batch(
+        x, y, p, t, np.ones((nw, K), bool), height=480, width=640,
+        t16=s.wire_t16))
+    pack_s = time.perf_counter() - t0
+    sp = block_superpixels(batch, H, W)
+    prior = 1.0 / (1.0 + np.arange(C)) ** 2
+    block_class = rng.choice(C, size=(batch, s.superpixel_size),
+                             p=prior / prior.sum())
+    pl = np.take_along_axis(block_class, sp.reshape(batch, -1),
+                            axis=1).reshape(batch, H, W)
+    out = {
+        "frame": rng.uniform(0, 1, (batch, H, W, 3)).astype(np.float32),
+        "label": rng.integers(0, C, (batch, H, W)).astype(np.int32),
+        "pl": pl.astype(np.int32),
+        "superpixel": sp,
+    }
+    out.update(pack_wire_batch(wire, batch, T))
+    return out, pack_s
+
+
+def k1_nw160_phase(torch, k1, dev, flush, host_batch):
+    """K1 against its plain version on the whole flagship batch (NW = 160
+    windows, a 983 MB f32 grid): the shape the train step launches."""
+    from openess_tpu_torch.data.device_voxelize import WIRE_KEYS, upload_wire
+
+    phase("K1 vs plain at NW = 160 (one flagship batch, 480x640)")
+    d = upload_wire(host_batch, dev)
+    args = tuple(d[k].reshape((-1,) + d[k].shape[2:]) for k in WIRE_KEYS)
+    run_k = lambda: k1.voxelize_chunked_trilinear(
+        *args, num_bins=5, height=480, width=640)
+    got = run_k()
+    ref = k1.voxelize_chunked_trilinear_plain(
+        *args, num_bins=5, height=480, width=640)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    per_window = (got - ref).abs().amax(dim=(1, 2, 3))
+    ok = err <= K1_REL_TOL * scale
+    del ref
+    ms_k = cuda_ms(torch, run_k, flush, iters=5, warmup=1)
+    events = int(host_batch["ev_counts"].sum())
+    nbytes = (events * 7 + sum(host_batch[k].nbytes for k in
+                               ("ev_counts", "ev_r0", "ev_trange"))
+              + got.numel() * 4)
+    b_ms, b_by = bound(nbytes, events * 8 * 6, F32_OPS_PER_S)
+    print(f"K1 [NW=160] grid {tuple(got.shape)} max|kernel-plain| {err:.3e} "
+          f"(max|plain| {scale:.3f}, bound {K1_REL_TOL:.0e} x max; last "
+          f"window {per_window[-1].item():.3e}) {'OK' if ok else 'FAIL'}; "
+          f"kernel_ms {ms_k:.4f} bound_ms {b_ms:.4f} ({b_by}; {events} "
+          f"events, {nbytes / 1e6:.1f} MB)")
+    if not ok:
+        raise AssertionError(f"K1 disagrees with its plain version at "
+                             f"NW=160: {err}")
+    return dict(ms_nw160=ms_k, bound_ms_nw160=b_ms, max_abs_err_nw160=err)
+
+
+class OneBatchDataset:
+    """``steps * batch`` samples that all assemble into the same host batch:
+    the trainer's epoch is ``steps`` steps on one batch."""
+
+    def __init__(self, host_batch, steps):
+        self.host_batch = host_batch
+        self.n = steps * host_batch["frame"].shape[0]
+
+    def __len__(self):
+        return self.n
+
+    def get_batch(self, idx):
+        return dict(self.host_batch)
+
+
+def device_profile(torch, fn):
+    """Run ``fn`` under the profiler; returns (device-side entries, wall
+    seconds, device ms per ``train/<part>`` span)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side entries only (kernels, memsets, copies): the CPU ops
+    # that launched them report the same device time again
+    events = prof.key_averages()
+    # the train step's record_function spans are not device work: keep
+    # them apart (host-side entry: device time of the kernels launched
+    # inside the span)
+    avg = [e for e in events
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+           and not e.key.startswith("train/")]
+    spans = {e.key: e.device_time_total / 1e3 for e in events
+             if e.key.startswith("train/")
+             and e.device_type != DeviceType.CUDA}
+    return avg, wall, spans
+
+
+def print_profile(avg, wall, n, unit, smi):
+    busy_ms = sum(e.self_device_time_total for e in avg) / 1e3
+    if busy_ms <= 0:
+        print("device busy time: not measured (the profiler saw no device "
+              "activity)")
+        return
+    print(f"device busy {busy_ms / n:.3f} ms per {unit} over {n} {unit}s; "
+          f"wall {wall * 1e3 / n:.1f} ms per {unit} (profiled); idle "
+          f"share {1 - busy_ms / (wall * 1e3):.3f}; on {smi}")
+    print(f"top device kernels, ms per {unit}:")
+    for e in sorted(avg, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3 / n:8.3f}  "
+              f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
+                read_counts):
+    """The flagship pretrain frame2voxel trainer at full width: an epoch of
+    ``TRAIN_STEPS`` steps on one batch through ``Trainer.train_epoch``,
+    timed steps, an eval step, a checkpoint served by ``StreamServer``, and
+    a profile. Returns the kernels' launch counts of the epoch."""
+    from openess_tpu_torch.data.device_voxelize import upload_wire
+    from openess_tpu_torch.metrics import MetricsSemseg
+    from openess_tpu_torch.serve_stream import StreamServer, synthetic_windows
+    from openess_tpu_torch.training import checkpoint as ckpt
+    from openess_tpu_torch.training.trainer import Trainer, to_device
+
+    phase("train: pretrain frame2voxel at full width, bf16 "
+          "(openess_tpu_torch.training.trainer.Trainer)")
+    B = host_batch["frame"].shape[0]
+    s = dataclasses.replace(settings, batch_size_b=B, save_checkpoint=False)
+    if B != settings.batch_size_b:
+        print(f"B = {settings.batch_size_b} did not fit the card's memory: "
+              f"running at B = {B}")
+    print(f"settings: the flagship YAML's values with e2vid_fused_gates on; "
+          f"B={B}, T={s.nr_events_data_b}, teacher_os={s.teacher_os}, "
+          f"fold_bn={s.teacher_fold_bn}, superpixel_size={s.superpixel_size}, "
+          f"{s.compute_dtype}; random weights, seed 0; augmentation "
+          f"{'on' if s.data_augmentation_train else 'off'}")
+    torch.cuda.reset_peak_memory_stats()
+    data = OneBatchDataset(host_batch, TRAIN_STEPS)
+    trainer = Trainer(s, data, data, seed=0, device=dev)
+    sb, mset = trainer.sb, trainer.mset
+    frozen = {
+        f"{name}.{k}": v.clone()
+        for name in ("front_sensor_b", "model_frame")
+        for k, v in mset.modules[name].state_dict().items()
+        if not k.startswith("decoder_conv")
+    }
+    head0 = {k: v.clone() for k, v in
+             mset.modules["back_end"].state_dict().items()}
+
+    # the first step (cuDNN algorithm choice, allocator growth) is run
+    # apart; its loss is the run's starting point
+    batch = to_device(host_batch, dev)
+    t0 = time.perf_counter()
+    try:
+        first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+    except torch.cuda.OutOfMemoryError:
+        # the one allowed retreat: the width stays, the batch halves
+        if B == 1:
+            raise
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"out of memory at B = {B} (peak {peak:.2f} GiB); halving B")
+        del trainer, sb, mset, batch, frozen, head0
+        torch.cuda.empty_cache()
+        half = {k: v[:B // 2] for k, v in host_batch.items()}
+        return train_phase(torch, dev, smi, settings, half, zero_counts,
+                           read_counts)
+    torch.cuda.synchronize()
+    print(f"step 0 (warm-up, {time.perf_counter() - t0:.2f} s): {first}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    avg_losses = trainer.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"Trainer.train_epoch: {TRAIN_STEPS} steps in {epoch_s:.2f} s "
+          f"({epoch_s * 1e3 / TRAIN_STEPS:.1f} ms per step, host clock, "
+          f"batch upload included); epoch-average losses {avg_losses}; "
+          f"launches K1 {counts['K1']} K3 {counts['K3']} K2 {counts['K2']}")
+
+    # timed steps on the resident batch: CUDA events per step
+    hist, events = [], []
+    for _ in range(TRAIN_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = sb.train_step(batch, 0)
+        b.record()
+        hist.append(losses)
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    hist = [{k: float(v) for k, v in h.items()} for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step p50 {np.percentile(ms, 50):.1f} ms p95 "
+          f"{np.percentile(ms, 95):.1f} ms over {len(ms)} steps (CUDA "
+          f"events, batch resident); peak memory "
+          f"{peak:.2f} GiB (torch.cuda.max_memory_allocated) at B={B}; on "
+          f"{smi}")
+    dense = [first["dense_clip_loss"]] + [h["dense_clip_loss"] for h in hist]
+    print("dense_clip_loss: step 0 " + f"{dense[0]:.4f}, timed steps "
+          + " ".join(f"{v:.4f}" for v in dense[1:]))
+    print("contrastive_nce_loss: timed steps "
+          + " ".join(f"{h['contrastive_nce_loss']:.4f}" for h in hist))
+    sd = {f"{n}.{k}": v for n in ("front_sensor_b", "model_frame")
+          for k, v in mset.modules[n].state_dict().items()}
+    head1 = mset.modules["back_end"].state_dict()
+    moved = sum(int(not torch.equal(head0[k], head1[k])) for k in head0
+                if k != "text_embeddings")
+    checks = {
+        "every loss finite": all(np.isfinite(v) for h in [first] + hist
+                                 for v in h.values())
+        and all(np.isfinite(v) for v in avg_losses.values()),
+        "loss keys": set(first) == {"contrastive_nce_loss",
+                                    "dense_clip_loss", "total_loss"},
+        "dense_clip_loss fell": dense[-1] < dense[0],
+        "frozen parameters unchanged": all(
+            torch.equal(v, sd[k]) for k, v in frozen.items()),
+        "head parameters moved": moved == len(head0) - 1,
+        "text embeddings unchanged": torch.equal(
+            head0["text_embeddings"], head1["text_embeddings"]),
+        "K1 once per step": counts["K1"] == TRAIN_STEPS,
+        "K3 60 per step": counts["K3"] == 60 * TRAIN_STEPS,
+        "K2 twice per step": counts["K2"] == 2 * TRAIN_STEPS,
+        "optimizer steps": sb.step == 1 + 2 * TRAIN_STEPS,
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"train checks failed: {checks}")
+
+    phase("eval step, checkpoint, and the checkpoint served")
+    pred, loss = sb.eval_step(batch)
+    metrics = MetricsSemseg(s.semseg_num_classes, s.semseg_ignore_label,
+                            s.semseg_class_names)
+    metrics.update_batch(pred, batch["label"])
+    summary = metrics.get_metrics_summary()
+    H, W = (int(v) for v in s.img_size_b)
+    eval_ok = {
+        "pred shape": tuple(pred.shape) == (B, H, W),
+        "pred range": 0 <= int(pred.min()) and int(pred.max())
+        < s.semseg_num_classes,
+        "eval loss finite": bool(torch.isfinite(loss)),
+        "mIoU in [0, 100]": 0.0 <= summary["miou"] <= 100.0,
+        "confusion counts every pixel": summary["cm"].sum() == B * H * W,
+    }
+    print(f"eval_step: loss {float(loss):.4f}, mIoU {summary['miou']:.2f} "
+          f"acc {summary['acc']:.2f} against random labels; "
+          + ", ".join(f"{k} {'ok' if v else 'FAIL'}"
+                      for k, v in eval_ok.items()))
+    if not all(eval_ok.values()):
+        raise AssertionError(f"eval checks failed: {eval_ok}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = ckpt.save_checkpoint(tmp, mset, trainer.optimizer, sb.step, 0)
+        size_mb = os.path.getsize(path) / 1e6
+        server = StreamServer(s, streams=1, device=dev, seed=1,
+                              checkpoint=tmp)
+    x, y, p, t = next(iter(synthetic_windows(1, 100_000, 480, 640)))
+    wire = upload_wire(server.pack(x, y, p, t), dev)
+    _, labels, logits = server.step(server.initial_state(), wire)
+    sb._set_mode(False)
+    with torch.no_grad():
+        want, _ = sb._event_path(wire)  # one window from a zero state
+    err = (logits.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    agree = (labels == want.argmax(-1).to(torch.uint8)).float().mean().item()
+    ok = err <= 2e-2 * scale and agree >= 0.99
+    print(f"checkpoint {size_mb:.1f} MB written, restored into a server "
+          f"built from another seed, one window served: max|served-"
+          f"trainer| logits {err:.3e} of max {scale:.3f} (bound 2e-2 x max: "
+          f"bf16, the server holds the head in bf16, the trainer casts f32 "
+          f"weights per call), label agreement {agree:.5f} (bound 0.99) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the served checkpoint disagrees with the "
+                             "trainer's own event path")
+    del server
+
+    phase("train trace: device busy time and idle share")
+    n = 3
+    avg, wall, spans = device_profile(
+        torch, lambda: [sb.train_step(batch, 0) for _ in range(n)])
+    print_profile(avg, wall, n, "step", smi)
+    if spans:
+        # the backward kernels are launched by the autograd thread, outside
+        # the host-side span: the backward is what the other spans leave
+        busy = sum(e.self_device_time_total for e in avg) / 1e3
+        named = {k[len("train/"):]: v / n for k, v in spans.items()
+                 if k != "train/backward"}
+        named["backward (the rest)"] = busy / n - sum(named.values())
+        print("device ms per step by part of the step (kernels launched "
+              "inside each span): " + ", ".join(
+                  f"{k} {v:.2f}"
+                  for k, v in sorted(named.items(), key=lambda kv: -kv[1])))
+    return counts
+
+
+def train_reference_phase(torch, dev):
+    """One f32 train step at 440x640, B = 1, T = 2 on CUDA (K1, K3, K2)
+    against the same step on the CPU (plain versions), same seed."""
+    from openess_tpu_torch.ops import voxelize_chunked as k1
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.optim import make_optimizer
+    from openess_tpu_torch.training.steps import StepBuilder
+    from openess_tpu_torch.training.trainer import to_device
+
+    phase("train reference: f32 step on CUDA (K1, K3, K2) vs on the CPU "
+          "(plain), 440x640, B=1, T=2, teacher_os=4")
+    s = flagship_settings(
+        compute_dtype="float32", e2vid_fused_gates=True, batch_size_b=1,
+        nr_events_data_b=2, data_augmentation_train=False)
+    host_batch, _ = flagship_batch(s, k1, batch=1, seed=1)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        mset = build_models(s, seed=0, device=d)
+        sb = StepBuilder(s, mset, make_optimizer(s, mset), 1)
+        sb._set_mode(True)
+        total, losses = sb.compute_losses(
+            sb._with_windows(to_device(host_batch, d)), 0)
+        total.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 mset.modules["back_end"].named_parameters()}
+        dc = mset.modules["model_frame"].decoder_conv
+        grads["model_frame.decoder_conv.weight"] = dc.weight.grad.cpu()
+        out[d.type] = ({k: float(v.detach()) for k, v in losses.items()},
+                       grads)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        print(f"  {d.type}: {time.perf_counter() - t0:.1f} s, losses "
+              f"{out[d.type][0]}")
+        del mset, sb, total, losses
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    worst_loss = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc)
+    plain = inorm = 0.0
+    for k in gc:
+        scale = gc[k].abs().max().item()
+        rel = (gg[k] - gc[k]).abs().max().item() / max(scale, 1e-30)
+        if k.startswith("decoder_scale"):
+            if k.endswith("weight"):  # biases before a norm: zero gradient
+                inorm = max(inorm, rel)
+        else:
+            plain = max(plain, rel)
+    ok = (worst_loss <= TRAIN_LOSS_REL_TOL and plain <= TRAIN_GRAD_REL_TOL
+          and inorm <= TRAIN_INORM_GRAD_REL_TOL)
+    print(f"max rel |cuda-cpu|: losses {worst_loss:.3e} (bound "
+          f"{TRAIN_LOSS_REL_TOL:.0e}); gradients of decoder_ch256/512 and "
+          f"the teacher's decoder_conv {plain:.3e} of each tensor's max "
+          f"(bound {TRAIN_GRAD_REL_TOL:.0e}); of the instance-normalized "
+          f"convs' weights {inorm:.3e} (bound "
+          f"{TRAIN_INORM_GRAD_REL_TOL:.0e}: their f32 backward is "
+          f"ill-conditioned at random init, on any device) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CUDA train step disagrees with the CPU one")
+
+
 def main():
     import torch
 
@@ -118,6 +616,7 @@ def main():
     from openess_tpu_torch.models.e2vid import initial_stream_state
     from openess_tpu_torch.ops import _build
     from openess_tpu_torch.ops import lstm_gates as k3
+    from openess_tpu_torch.ops import segment_pool as k2
     from openess_tpu_torch.ops import voxelize_chunked as k1
     from openess_tpu_torch.serve_stream import (
         StreamServer,
@@ -144,8 +643,9 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        nvcc = pool.submit(_build.build, "voxelize_chunked.cu")
+    sources = ("voxelize_chunked.cu", "segment_pool.cu")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        nvcc = [pool.submit(_build.build, src) for src in sources]
         # Triton compiles one kernel per C (16 rows: the row count is
         # specialized on divisibility by 16, as at the real shapes)
         for h, w, c in K3_SHAPES:
@@ -154,14 +654,17 @@ def main():
             k3.fused_lstm_gates(g, torch.zeros_like(g[..., :c]))
         torch.cuda.synchronize()
         t_triton = time.perf_counter() - t0
-        lib_path = nvcc.result()
+        lib_paths = [f.result() for f in nvcc]
     t_nvcc = time.perf_counter() - t0
     k1._kernel()
-    print(f"K1 nvcc build+load {t_nvcc:.1f} s -> {lib_path}")
-    with open(os.path.splitext(lib_path)[0] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+    k2._kernel()
+    for name, lib_path in zip(("K1", "K2"), lib_paths):
+        print(f"{name} nvcc build+load (both sources in parallel "
+              f"{t_nvcc:.1f} s) -> {lib_path}")
+        with open(os.path.splitext(lib_path)[0] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    print("  ptxas:", line.strip())
     print(f"K3 triton compile (3 specializations) {t_triton:.1f} s")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -271,28 +774,37 @@ def main():
         bound_by="bytes", library_ms=sums[2],
         check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6, 3 shapes",
     )
-    del flush
+    kernels["K2"] = k2_phase(torch, k2, dev, flush)
 
     phase("serving: openess_tpu_torch.serve_stream at full width, bf16")
     print("settings: the values of configs/pretrain/DSEC/frame2voxel_fcclip_"
           "slic.yaml, built in code (config_option=frame2voxel); random "
           "weights, seed 0")
-    launches = {"K1": 0, "K3": 0}
+    counters = {"K1": k1.voxelize_chunked_trilinear,
+                "K2": k2.segment_pool_sums, "K3": k3.fused_lstm_gates}
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {k: fn.launches for k, fn in counters.items()}
+
+    serving_launches = {k: 0 for k in counters}
     for label, fused, S, n in (
-        ("S=1, plain gate path", False, 1, 20),
-        ("S=1, K3 gates", True, 1, 20),
-        ("S=8, K3 gates", True, 8, 5),
+        ("S=1, plain gate path", False, 1, 10),
+        ("S=1, K3 gates", True, 1, 10),
+        ("S=8, K3 gates", True, 8, 3),
     ):
         s = flagship_settings(e2vid_fused_gates=fused)
         server = StreamServer(s, streams=S, device=dev)
-        k1.voxelize_chunked_trilinear.launches = 0
-        k3.fused_lstm_gates.launches = 0
+        zero_counts()
         r = serve(server, synthetic_windows(n, 100_000, 480, 640))
         torch.cuda.synchronize()
-        n1 = k1.voxelize_chunked_trilinear.launches
-        n3 = k3.fused_lstm_gates.launches
-        launches["K1"] += n1
-        launches["K3"] += n3
+        got = read_counts()
+        n1, n3 = got["K1"], got["K3"]
+        for k in got:
+            serving_launches[k] += got[k]
         print(f"[{label}]")
         for line in report(r, 20.0, dev):
             print("  " + line)
@@ -319,6 +831,7 @@ def main():
             "carried state shapes": shapes_ok,
             "K1 once per window": n1 == n,
             "K3 three per window": n3 == (3 * n if fused else 0),
+            "K2 not on the serving path": got["K2"] == 0,
         }
         print("  checks: " + ", ".join(
             f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
@@ -327,35 +840,14 @@ def main():
         del server, r
 
     phase("serving trace: device busy time and idle share (S=1, K3 gates)")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     server = StreamServer(flagship_settings(e2vid_fused_gates=True), 1, dev)
     wins = list(synthetic_windows(7, 100_000, 480, 640))
     serve(server, wins[:2])  # warm-up: cuDNN algorithm choice
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        r = serve(server, wins[2:])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side entries only (kernels, memsets, copies): the CPU ops
-    # that launched them report the same device time again
-    avg = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in avg) / 1e3
-    n = r.windows
-    if busy_ms > 0:
-        print(f"device busy {busy_ms / n:.3f} ms per window over {n} windows; "
-              f"wall {wall * 1e3 / n:.1f} ms per window (profiled); idle "
-              f"share {1 - busy_ms / (wall * 1e3):.3f}; on {smi}")
-        print("top device kernels, ms per window:")
-        for e in sorted(avg, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"  {e.self_device_time_total / 1e3 / n:8.3f}  "
-                  f"x{e.count // n:<3d} {e.key[:90]}")
-    else:
-        print("device busy time: not measured (the profiler saw no device "
-              "activity)")
-    del server, r, prof
+    served = []
+    avg, wall, _ = device_profile(
+        torch, lambda: served.append(serve(server, wins[2:])))
+    print_profile(avg, wall, served[0].windows, "window", smi)
+    del server, served
 
     phase("reference: f32 server on CUDA (K1, K3) vs on the CPU (plain)")
     s32 = flagship_settings(compute_dtype="float32", e2vid_fused_gates=True)
@@ -375,12 +867,33 @@ def main():
         if not ok:
             raise AssertionError(f"CUDA server disagrees with CPU: {err}")
 
+    phase("pack one flagship batch (B=8, T=20, 100k events per window)")
+    settings = flagship_settings(e2vid_fused_gates=True)
+    host_batch, pack_s = flagship_batch(settings, k1)
+    print(f"numpy packer: {pack_s:.1f} s for {8 * 20} windows (host, set-up: "
+          f"the same batch feeds every step below); wire chunk axis "
+          f"{host_batch['ev_x'].shape[2]}")
+
+    kernels["K1"].update(k1_nw160_phase(torch, k1, dev, flush, host_batch))
+    del flush
+
+    train_launches = train_phase(torch, dev, smi, settings, host_batch,
+                                 zero_counts, read_counts)
+    train_reference_phase(torch, dev)
+
     phase("summary")
-    for key in ("K1", "K3"):
-        kernels[key]["launches"] = launches[key]
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "check")
-    rows = [{k: kernels[key][k] for k in order} for key in ("K1", "K3")]
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = []
+    for key in ("K1", "K3", "K2"):
+        row = kernels[key]
+        row["launches_serving"] = serving_launches[key]
+        row["launches_train"] = train_launches[key]
+        row["launches"] = serving_launches[key] + train_launches[key]
+        if row["launches"] <= 0:
+            raise AssertionError(f"{key} was never launched on a main path")
+        rows.append({k: row[k] for k in order}
+                    | {k: v for k, v in row.items() if k not in order})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -8,7 +8,11 @@ plain PyTorch version beside it, which it takes only for tensors on the CPU.
 
 Ported so far: the streaming segmentation server (``serve_stream``):
 event wire -> K1 voxelizer -> E2VID step (K3 gate kernel when
-``tpu.e2vid_fused_gates``) -> SemSegE2VID head -> uint8 labels.
+``tpu.e2vid_fused_gates``) -> SemSegE2VID head -> uint8 labels; and
+training on the event path (``train``, ``test``, ``training/``): the
+pretrain ``frame2voxel`` / ``recon2voxel`` step with the frozen ResNet-50
+teacher and superpixel pooling through the K2 kernel, the ``sup_only``
+step, the eval step, the trainer loop and checkpoints.
 
 Module names follow ``openess_tpu`` so each counterpart is easy to find.
 Public functions keep the JAX package's NHWC layouts; convolutions run on

@@ -1,1 +1,2 @@
-"""Event data: file readers and the on-device voxelization of the wire."""
+"""Event data: file readers, the synthetic dataset, augmentation and the
+on-device voxelization of the wire."""

@@ -1,14 +1,18 @@
-"""PyTorch models of the serving path: E2VID and the SemSegE2VID head."""
+"""PyTorch models: E2VID, the SemSegE2VID head and the frame teacher."""
 from openess_tpu_torch.models.e2vid import (
     E2VIDReconstructor,
     E2VIDStreamingStep,
     initial_stream_state,
 )
+from openess_tpu_torch.models.image_teacher import DilationFeatureExtractor
+from openess_tpu_torch.models.resnet import ResNet50
 from openess_tpu_torch.models.semseg_e2vid import SemSegE2VID
 
 __all__ = [
+    "DilationFeatureExtractor",
     "E2VIDReconstructor",
     "E2VIDStreamingStep",
+    "ResNet50",
     "SemSegE2VID",
     "initial_stream_state",
 ]

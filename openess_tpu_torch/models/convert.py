@@ -1,13 +1,16 @@
 """JAX (flax) parameter trees -> ``state_dict``s of the port's modules.
 
-The inverse of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``
-and ``convert_semseg_e2vid``: the trees are nested dicts of numpy arrays,
-the state-dict keys are the reference's. Layout rules:
+The inverse of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``,
+``convert_semseg_e2vid`` and ``convert_dilation_teacher``: the trees are
+nested dicts of numpy arrays, the state-dict keys are the reference's.
+Layout rules:
 
 - conv            flax HWIO ``[kh, kw, I, O]`` -> torch OIHW ``[O, I, kh, kw]``
 - transposed conv ``ConvTranspose2dTorch`` ``[kh, kw, O, I]`` ->
   torch ``ConvTranspose2d`` ``[I, O, kh, kw]`` (no flip: the JAX module
   flips at apply time)
+- BatchNorm       flax ``scale``/``bias`` params and ``mean``/``var`` batch
+  stats -> torch ``weight``/``bias``/``running_mean``/``running_var``
 """
 from __future__ import annotations
 
@@ -83,4 +86,46 @@ def semseg_state_dict_from_jax(params: dict, text) -> dict:
     _conv(sd, "decoder_ch256.0", params["decoder_ch256"])
     _conv(sd, "decoder_ch512.0", params["decoder_ch512"])
     sd["text_embeddings"] = _t(text)
+    return sd
+
+
+def _bn(sd: dict, name: str, p: dict, stats: dict):
+    sd[name + ".weight"] = _t(p["scale"])
+    sd[name + ".bias"] = _t(p["bias"])
+    sd[name + ".running_mean"] = _t(stats["mean"])
+    sd[name + ".running_var"] = _t(stats["var"])
+
+
+def resnet50_state_dict_from_jax(params: dict, batch_stats: dict,
+                                 prefix: str = "") -> dict:
+    """flax ``ResNet50`` params and batch stats -> torchvision-named
+    ``state_dict`` (the keys ``convert_resnet50`` reads)."""
+    sd: dict = {}
+    _conv(sd, prefix + "conv1", params["conv1"])
+    _bn(sd, prefix + "bn1", params["bn1"], batch_stats["bn1"])
+    for li, blocks in zip(range(1, 5), (3, 4, 6, 3)):
+        for bi in range(blocks):
+            bp = params[f"layer{li}/{bi}"]
+            bs = batch_stats[f"layer{li}/{bi}"]
+            base = f"{prefix}layer{li}.{bi}."
+            for ci in (1, 2, 3):
+                _conv(sd, base + f"conv{ci}", bp[f"conv{ci}"])
+                _bn(sd, base + f"bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            if "downsample_conv" in bp:
+                _conv(sd, base + "downsample.0", bp["downsample_conv"])
+                _bn(sd, base + "downsample.1", bp["downsample_bn"],
+                    bs["downsample_bn"])
+    return sd
+
+
+def teacher_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
+    """flax ``DilationFeatureExtractor`` params and batch stats ->
+    ``state_dict`` of the port's :class:`DilationFeatureExtractor`
+    (``encoder.*`` and ``decoder_conv.*``). The inverse of
+    ``convert_dilation_teacher``: feeding it the ``encoder.``-stripped keys
+    and the decoder conv gives the same trees back."""
+    sd = resnet50_state_dict_from_jax(
+        params["encoder"], batch_stats["encoder"], prefix="encoder."
+    )
+    _conv(sd, "decoder_conv", params["decoder_conv"])
     return sd

@@ -239,10 +239,12 @@ class E2VIDStreamingStep(nn.Module):
     """
 
     def __init__(self, num_bins=5, normalize=True, latent_only=False,
-                 base_num_channels=32, fused_gates=False):
+                 base_num_channels=32, fused_gates=False, unet=None):
         super().__init__()
         self.normalize = normalize
-        self.unetrecurrent = UNetRecurrent(
+        # ``unet``: share an existing UNet (and its parameters) instead of
+        # building one; see E2VIDReconstructor.streaming_step
+        self.unetrecurrent = unet if unet is not None else UNetRecurrent(
             num_input_channels=num_bins, base_num_channels=base_num_channels,
             decode=not latent_only, fused_gates=fused_gates,
         )
@@ -270,6 +272,12 @@ class E2VIDReconstructor(nn.Module):
             num_input_channels=num_bins, base_num_channels=base_num_channels,
             decode=not latent_only, fused_gates=fused_gates,
         )
+
+    def streaming_step(self) -> E2VIDStreamingStep:
+        """The one-window step over this reconstructor's own UNet (shared
+        parameters, same state-dict keys)."""
+        return E2VIDStreamingStep(normalize=self.normalize,
+                                  unet=self.unetrecurrent)
 
     def forward(self, windows):
         if self.planar_input:

@@ -34,8 +34,18 @@ class InstanceNorm(nn.Module):
         return instance_norm(x)
 
 
+class CastConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype: the parameters are
+    cast per call (a no-op when they already match). A trainable head keeps
+    f32 parameters under a bf16 compute dtype, as the flax module does."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def _conv3(cin, cout):
-    return nn.Conv2d(cin, cout, 3, padding=1)
+    return CastConv2d(cin, cout, 3, padding=1)
 
 
 class ReLUINSConv2d(nn.Module):
@@ -89,8 +99,8 @@ class SemSegE2VID(nn.Module):
             ReLUINSConv2d(t // 2, t // 4), ReLUINSConv2d(t // 4, t // 4)
         )
         self.decoder_scale_4 = nn.Sequential(ReLUINSConv2d(t // 4, t // 8))
-        self.decoder_ch256 = nn.Sequential(nn.Conv2d(t // 8, 256, 1))
-        self.decoder_ch512 = nn.Sequential(nn.Conv2d(256, text_embed_dim, 1))
+        self.decoder_ch256 = nn.Sequential(CastConv2d(t // 8, 256, 1))
+        self.decoder_ch512 = nn.Sequential(CastConv2d(256, text_embed_dim, 1))
         self.register_buffer(
             "text_embeddings", torch.zeros(num_classes, text_embed_dim)
         )

@@ -202,6 +202,25 @@ def pad_wire_chunks(wire, nbc: int):
     )
 
 
+# Bucketed wire widths: a trimmed chunk count is rounded UP to this ladder
+# (~sqrt(2) steps), so a batch sheds the worst-case padding while the number
+# of distinct wire shapes stays small.
+WIRE_NBC_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 160, 192, 224)
+
+
+def trim_wire_chunks(wire):
+    """Cut a chunked wire's chunk axis to the bucketed batch-max USED chunk
+    count (never above its current width): what the JAX package's batch
+    packer ships by default. Used chunks are a prefix, so nothing is lost."""
+    counts = wire[4]
+    cap = counts.shape[1]
+    used = int((counts > 0).sum(axis=1).max(initial=0))
+    nbc = next((min(b, cap) for b in WIRE_NBC_BUCKETS if b >= used), cap)
+    return tuple(
+        np.ascontiguousarray(a[:, :nbc]) if a.ndim >= 2 else a for a in wire
+    )
+
+
 # ---------------------------------------------------------------------------
 # device half: K1
 # ---------------------------------------------------------------------------

@@ -16,10 +16,12 @@ S`` serves S copies of the stream batched into one step call.
 Usage:
   python -m openess_tpu_torch.serve_stream --settings_file configs/<cfg>.yaml \\
       [--events events.zip | --synthetic 40] [--window_events 100000] \\
-      [--streams S] [--rate_hz 20] [--out_dir preds/] [--device cuda|cpu]
+      [--streams S] [--rate_hz 20] [--out_dir preds/] [--device cuda|cpu] \\
+      [--checkpoint <file or dir>]
 
-Weights are random from a fixed seed; loading a trained checkpoint is not
-ported yet.
+Weights are random from a fixed seed unless ``--checkpoint`` names a
+checkpoint of the port's trainer (``training/checkpoint.py``), whose
+``front_sensor_b`` and ``back_end`` are then loaded.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ from openess_tpu_torch.ops.voxelize_chunked import (
     chunk_events_batch,
     pad_wire_chunks,
 )
-from openess_tpu_torch.training.build import build_models
+from openess_tpu_torch.training.build import build_models, serving_models
 
 
 def synthetic_windows(n: int, window_events: int, sensor_h: int, sensor_w: int):
@@ -90,10 +92,15 @@ class StreamServer:
     concurrent streams batched into one call."""
 
     def __init__(self, s, streams: int = 1, device=None, seed: int = 0,
-                 sensor_size: str = ""):
+                 sensor_size: str = "", checkpoint: str = ""):
         self.s = s
         self.streams = streams
-        self.models = build_models(s, seed=seed, device=device)
+        mset = build_models(s, seed=seed, device=device, event_path_only=True)
+        if checkpoint:
+            from openess_tpu_torch.training.checkpoint import load_model_only
+
+            load_model_only(checkpoint, mset)
+        self.models = serving_models(mset)
         self.device = self.models.device
         self.height, self.width = (int(v) for v in s.img_size_b)
         self.sensor_h, self.sensor_w = sensor_shape(s, sensor_size)
@@ -265,13 +272,17 @@ def main(argv=None):
     ap.add_argument("--max_windows", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--checkpoint", default="",
+                    help="trainer checkpoint (file, or a directory of "
+                         "ckpt_*.pt) to load the models from")
     args = ap.parse_args(argv)
 
     from openess_tpu_torch.config.settings import load_settings
 
     s = load_settings(args.settings_file)
     server = StreamServer(s, streams=args.streams, device=args.device,
-                          sensor_size=args.sensor_size)
+                          sensor_size=args.sensor_size,
+                          checkpoint=args.checkpoint)
     if args.events:
         windows = file_windows(args.events, args.window_events)
     else:

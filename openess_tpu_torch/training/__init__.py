@@ -1,1 +1,1 @@
-"""Model construction (the serving subset so far)."""
+"""Model construction, optimizer, steps, trainer and checkpoints."""

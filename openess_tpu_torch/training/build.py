@@ -1,11 +1,30 @@
-"""Model construction: the serving subset of ``openess_tpu/training/build.py``.
+"""Model-set construction per workload, the counterpart of
+``openess_tpu/training/build.py``.
 
-For a voxel ``config_option`` the event path is two modules: the E2VID
-front end (``front_sensor_b``, frozen, latent only) and the SemSegE2VID head
-(``back_end``) scoring against the CLIP text embeddings. Weights are drawn
-from a seed with the flax initializers' distributions (truncated-normal
-LeCun for convs, variance-scaled uniform for the transposed convs, zero
-biases); released checkpoints are not loaded yet.
+One function maps (task, config_option) to named modules with roles:
+
+================  ==========================================================
+name              role
+================  ==========================================================
+front_sensor_b    ``e2vid``: the E2VID reconstructor over the T windows
+                  (frozen, latent only; gradients never reach it)
+back_end          ``semseg_head``: SemSegE2VID over the E2VID latents,
+                  scoring against the CLIP text embeddings
+model_frame /     ``teacher``: the frame teacher (frozen dilated ResNet-50
+model_recon       encoder, trainable ``decoder_conv``), applied to frames
+                  (frame2voxel) or reconstructions (recon2voxel)
+================  ==========================================================
+
+This is the one place where a module is made and initialised: the trainer
+and the streaming server both build from it. Weights are drawn from a seed
+with the flax initializers' distributions (truncated-normal LeCun for
+convs, variance-scaled uniform for the transposed convs, zero biases,
+identity BatchNorms); released checkpoints are not loaded yet.
+
+Parameter dtypes: the frozen E2VID is stored in the compute dtype; the
+trainable head and the teacher keep f32 parameters and cast them to the
+compute dtype where they are used (as flax modules do), so the optimizer
+updates f32 weights under a bf16 compute dtype.
 """
 from __future__ import annotations
 
@@ -19,7 +38,11 @@ from torch import nn
 
 from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import Settings
-from openess_tpu_torch.models.e2vid import E2VIDStreamingStep
+from openess_tpu_torch.models.e2vid import (
+    E2VIDReconstructor,
+    E2VIDStreamingStep,
+)
+from openess_tpu_torch.models.image_teacher import DilationFeatureExtractor
 from openess_tpu_torch.models.semseg_e2vid import SemSegE2VID
 
 VOXEL_OPTIONS = ("recon2voxel", "frame2voxel")
@@ -71,40 +94,145 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
 
 
+def task_from_settings(s: Settings) -> str:
+    """The train entry point's dispatch order."""
+    if s.if_supervised_only:
+        return "sup_only"
+    if s.if_pretraining:
+        return "pretrain"
+    if s.if_finetuning:
+        return "finetune"
+    if s.if_linear_probing:
+        return "linear_probe"
+    return "openess"
+
+
+@dataclasses.dataclass
+class ModelSet:
+    modules: dict                  # name -> nn.Module
+    roles: dict                    # name -> 'e2vid'|'semseg_head'|'teacher'
+    groups: dict                   # name -> group 'recon'|'frame'|'voxel'
+    text_embeddings: torch.Tensor  # [num_classes, 512]: the head's buffer
+    task: str
+    dtype: torch.dtype             # the compute dtype
+    device: torch.device
+
+    def state_dict(self) -> dict:
+        """``{name: module.state_dict()}`` (the checkpoint's model part)."""
+        return {k: m.state_dict() for k, m in self.modules.items()}
+
+
+_NOT_PORTED = {
+    "finetune": "ROADMAP Queue 1 item 3 (other workloads on the event path)",
+    "linear_probe": "ROADMAP Queue 1 item 3 (other workloads on the event "
+                    "path)",
+    "openess": "ROADMAP Queue 1 item 6 (DeepLabV3 and the frame/recon "
+               "workloads)",
+}
+
+
+def build_models(s: Settings, seed: int = 0, device=None, *,
+                 event_path_only: bool = False) -> ModelSet:
+    """The modules of the configured workload on ``device`` (CUDA unless
+    asked otherwise), seeded. Ported: pretrain ``frame2voxel`` /
+    ``recon2voxel`` and ``sup_only`` on the voxel options; anything else
+    raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+    ``event_path_only`` leaves out the teacher (a server needs only
+    ``front_sensor_b`` and ``back_end``, which come out the same)."""
+    task = task_from_settings(s)
+    opt = s.config_option
+    if task in _NOT_PORTED and not event_path_only:
+        raise NotImplementedError(
+            f"task {task!r} is not ported yet: {_NOT_PORTED[task]}"
+        )
+    if opt not in VOXEL_OPTIONS:
+        raise NotImplementedError(
+            f"config_option {opt!r} needs the DeepLabV3 student, which is "
+            "not ported yet: ROADMAP Queue 1 item 6 (DeepLabV3 and the "
+            f"frame/recon workloads); ported options: {VOXEL_OPTIONS}"
+        )
+    dev = resolve_device(device)
+    dt = compute_dtype(s)
+    text = torch.from_numpy(
+        load_text_embeddings(s, np.random.default_rng(seed)))
+
+    modules, roles, groups = {}, {}, {}
+
+    def add(name, module, role, group):
+        modules[name], roles[name], groups[name] = module, role, group
+
+    add("front_sensor_b", E2VIDReconstructor(
+        num_bins=s.input_channels_b, normalize=True, planar_input=True,
+        latent_only=True, fused_gates=s.e2vid_fused_gates,
+    ), "e2vid", "voxel")
+    add("back_end", SemSegE2VID(input_c=256, num_classes=s.semseg_num_classes),
+        "semseg_head", "voxel")
+    if task == "pretrain" and not event_path_only:
+        name, group = (("model_recon", "recon") if opt == "recon2voxel"
+                       else ("model_frame", "frame"))
+        add(name, DilationFeatureExtractor(
+            dtype=dt, output_stride=s.teacher_os, fold_bn=s.teacher_fold_bn,
+        ), "teacher", group)
+
+    gen = torch.Generator().manual_seed(seed)
+    for m in modules.values():
+        init_weights(m, gen)
+    modules["back_end"].text_embeddings.copy_(text)
+    for name, m in modules.items():
+        if roles[name] == "e2vid":  # frozen: stored in the compute dtype
+            m.to(device=dev, dtype=dt, memory_format=torch.channels_last)
+        else:
+            m.to(device=dev, memory_format=torch.channels_last)
+    mset = ModelSet(
+        modules=modules, roles=roles, groups=groups,
+        text_embeddings=modules["back_end"].text_embeddings, task=task,
+        dtype=dt, device=dev,
+    )
+    labels = trainable_labels(mset, s)
+    for name, m in modules.items():
+        for pname, p in m.named_parameters():
+            p.requires_grad_(labels[f"{name}.{pname}"] != "frozen")
+    return mset
+
+
+def trainable_labels(mset: ModelSet, s: Settings) -> dict:
+    """``{"<module>.<parameter>": label}`` with the optimizer-group label
+    ('recon' / 'frame' / 'voxel') of every parameter, or 'frozen': E2VID
+    always, and the teacher's ``encoder``; the teacher's ``decoder_conv``
+    and the head train in their module's group."""
+    labels = {}
+    for name, m in mset.modules.items():
+        role, group = mset.roles[name], mset.groups[name]
+        for pname, _ in m.named_parameters():
+            if role == "e2vid":
+                label = "frozen"
+            elif role == "teacher" and pname.startswith("encoder"):
+                label = "frozen"
+            else:
+                label = group
+            labels[f"{name}.{pname}"] = label
+    return labels
+
+
 @dataclasses.dataclass
 class ServingModels:
-    e2vid: E2VIDStreamingStep      # front_sensor_b
+    e2vid: E2VIDStreamingStep      # one window of front_sensor_b
     head: SemSegE2VID              # back_end
     text_embeddings: torch.Tensor  # [num_classes, 512]: the head's buffer
     dtype: torch.dtype
     device: torch.device
 
 
-def build_models(s: Settings, seed: int = 0, device=None) -> ServingModels:
-    """The voxel option's serving modules, in eval mode, on ``device``
-    (CUDA unless asked otherwise) in the compute dtype, channels-last."""
-    if s.config_option not in VOXEL_OPTIONS:
-        raise ValueError(
-            f"config_option {s.config_option!r} has no event path; the "
-            f"serving models need one of {VOXEL_OPTIONS}"
-        )
-    dev = resolve_device(device)
-    dt = compute_dtype(s)
-    text = torch.from_numpy(load_text_embeddings(s, np.random.default_rng(seed)))
-    e2vid = E2VIDStreamingStep(
-        num_bins=s.input_channels_b, normalize=True, latent_only=True,
-        fused_gates=s.e2vid_fused_gates,
-    )
-    head = SemSegE2VID(input_c=256, num_classes=s.semseg_num_classes)
-    gen = torch.Generator().manual_seed(seed)
-    init_weights(e2vid, gen)
-    init_weights(head, gen)
-    head.text_embeddings.copy_(text)
+def serving_models(mset: ModelSet) -> ServingModels:
+    """The event path of a model set, for inference: the one-window step
+    of ``front_sensor_b`` and the head, both in the compute dtype, eval
+    mode, no gradients. Converts the set's modules in place."""
     mods = []
-    for m in (e2vid, head):
-        m = m.to(device=dev, dtype=dt, memory_format=torch.channels_last)
+    for m in (mset.modules["front_sensor_b"].streaming_step(),
+              mset.modules["back_end"]):
+        m = m.to(dtype=mset.dtype)
         mods.append(m.eval().requires_grad_(False))
     return ServingModels(
         e2vid=mods[0], head=mods[1], text_embeddings=mods[1].text_embeddings,
-        dtype=dt, device=dev,
+        dtype=mset.dtype, device=mset.device,
     )
