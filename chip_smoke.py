@@ -3,10 +3,10 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds every kernel of the port's two main paths from the sources in the
+It builds every kernel of the port's main paths from the sources in the
 checkout, holds each against its plain PyTorch version at the shapes those
-paths give it, times both, then drives both paths at the full width of the
-flagship configuration (``configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml``:
+paths give it, times both, then drives the paths at full width. The first
+two run the flagship configuration (``configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml``:
 480x640 sensor cropped to 440x640, 5 bins, T = 20 windows of 100k events,
 the E2VID_lightweight UNet, the SemSegE2VID head, 11 classes, the dilated
 ResNet-50 teacher at output stride 4, 100 superpixels per image, bf16) with
@@ -17,16 +17,31 @@ seeded random weights, and checks what comes out:
   train steps on one synthetic batch, an eval step, a checkpoint written,
   restored and served.
 
-The settings are built in code from that YAML's values, since PyYAML may be
+The downstream stages follow, each through ``Trainer`` as well:
+
+- the DSEC fine-tune with ``unfrozen_e2vid``
+  (``configs/finetunes/DSEC/slic/frame2recon_fcclip_slic_100.yaml`` run as
+  ``frame2voxel``: E2VID trains, K3's backward runs 60 times a step), from
+  the checkpoint the pretrain phase has just written;
+- the DDD17 linear probe (``configs/linear_probe/DDD17/
+  frame2voxel_fcclip_slic.yaml`` with ``if_pretraining`` off: 260x346 sensor
+  voxelized by K4, resized and cropped to 200x352, T = 20 windows of 32 000
+  events, 6 classes, only the head's ``linear_probe`` conv trains), and the
+  streaming server on the same settings.
+
+The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is.
 
 Phases: device, build (one nvcc per source, started together, Triton
-beside them), K1 vs plain (NW = 8), K3 vs plain, K2 vs plain, serving (S=1
-with the plain gate path, S=1 with K3, S=8 with K3), a serving trace, an f32
-reference check of the CUDA server against the CPU server, packing one
-flagship batch, K1 vs plain at NW = 160, training, a training trace, an f32
-reference check of the CUDA train step against the CPU one, and the
-summary. The kernels' launch counters are zeroed before each main-path run
+beside them), K1 vs plain (NW = 8), K3 vs plain, K3 backward vs plain
+(B = 8, bf16 and f32), K2 vs plain, serving (S=1 with the plain gate path,
+S=1 with K3, S=8 with K3), a serving trace, an f32 reference check of the
+CUDA server against the CPU server, packing one flagship batch, K1 vs plain
+at NW = 160, training, a training trace, an f32 reference check of the CUDA
+train step against the CPU one, the fine-tune with its trace, an f32
+reference check of a small fine-tune step on CUDA against the CPU, packing
+one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes), the
+DDD17 linear probe, DDD17 serving, and the summary. The kernels' launch counters are zeroed before each main-path run
 and read after it. Any failure raises and the script exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``; before it come a
 ``{"kernels": [...]}`` line and the ``nvidia-smi`` name and power limit.
@@ -50,13 +65,20 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 K1_REL_TOL = 1e-5           # kernel vs plain, of max|plain|: atomics order
 K3_ABS_SLACK = 1e-6         # K3: one bf16 ulp plus this near zero
-K3_SHAPES = ((220, 320, 64), (110, 160, 128), (55, 80, 256))  # 440x640, B=1
+K3_SHAPES = ((220, 320, 64), (110, 160, 128), (55, 80, 256))  # 440x640
+K3_DDD17_SHAPES = ((100, 176, 64), (50, 88, 128), (25, 44, 256))  # 200x352
 REF_REL_TOL = 1e-3          # f32 server, CUDA vs CPU, of max|logits|
 K2_REL_TOL = 1e-5           # K2 sums vs plain, of max|plain|: atomics order
 TRAIN_LOSS_REL_TOL = 1e-3   # f32 train step, CUDA vs CPU, each loss
 TRAIN_GRAD_REL_TOL = 1e-3   # ... gradients of the head's plain convs
 TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
 TRAIN_STEPS = 8             # train steps driven on the flagship batch
+DOWNSTREAM_STEPS = 6        # ... on the fine-tune and linear-probe batches
+K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
+                            # in the last bits between Triton and PyTorch and
+                            # 1 - tanh^2, 1 - g^2 cancel, so the error of a
+                            # small gradient is set by its factors' size
+K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
 
 
 def flagship_settings(**overrides):
@@ -77,6 +99,59 @@ def flagship_settings(**overrides):
         output_stride=32, config_option="frame2voxel", if_pretraining=True,
         superpixel_sources="sp_slic_rgb", superpixel_size=100,
         compute_dtype="bfloat16",
+    )
+    return dataclasses.replace(s, **overrides)
+
+
+def finetune_settings(**overrides):
+    """``configs/finetunes/DSEC/slic/frame2recon_fcclip_slic_100.yaml`` run
+    as ``frame2voxel`` (its DeepLabV3 student is not on the event path),
+    built in code."""
+    from openess_tpu_torch.config.settings import Settings
+
+    log_dir = "log/finetune/dsec_frame2recon_fcclip_slic_100"
+    s = Settings(
+        num_cpu_workers=4, unfrozen_e2vid=True,
+        dataset_name_b="DSEC_events", dataset_path_b="data/DSEC",
+        img_size_b=(440, 640), nr_events_data_b=20, delta_t_per_data_b=50,
+        nr_events_window_b=100000, event_representation_b="voxel_grid",
+        nr_temporal_bins_b=5, semseg_num_classes=11, batch_size_b=8,
+        lr_voxel=1e-5, lr_recon=1e-5, lr_frame=1e-5, num_epochs=1000,
+        task_loss=("dice", "cross_entropy"), log_dir=log_dir,
+        ckpt_dir=os.path.join(log_dir, "checkpoints"),
+        load_pretrained_weights=True, skip_ratio=100,
+        text_embeddings_path="maskclip_weights/event_ViT16_clip_text_dsec.pth",
+        maskclip_checkpoint="maskclip_weights/ViT16_clip_backbone.pth",
+        visual_projs_path="maskclip_weights/ViT16_clip_weights.pth",
+        output_stride=32, config_option="frame2voxel", if_finetuning=True,
+        if_switchable_train=True, if_spatial_contrastive=False,
+        if_dense_clip_supervision=False, superpixel_sources="sp_slic_rgb",
+        superpixel_size=100, compute_dtype="bfloat16",
+    )
+    return dataclasses.replace(s, **overrides)
+
+
+def ddd17_probe_settings(**overrides):
+    """``configs/linear_probe/DDD17/frame2voxel_fcclip_slic.yaml`` with
+    ``if_pretraining`` off (the shipped file leaves it on, which dispatches
+    to pretrain), built in code."""
+    from openess_tpu_torch.config.settings import Settings
+
+    log_dir = "log/linear_prob_frame2voxel_fcclip_slic"
+    s = Settings(
+        dataset_name_b="DDD17_events", dataset_path_b="data/DDD17",
+        img_size_b=(200, 346), nr_events_data_b=20, delta_t_per_data_b=50,
+        nr_events_window_b=32000, event_representation_b="voxel_grid",
+        nr_temporal_bins_b=5, semseg_num_classes=6, batch_size_b=8,
+        task_loss=("dice", "cross_entropy"), log_dir=log_dir,
+        ckpt_dir=os.path.join(log_dir, "checkpoints"),
+        text_embeddings_path="maskclip_weights/ddd17_ViT16_clip_text.pth",
+        maskclip_checkpoint="maskclip_weights/ViT16_clip_backbone.pth",
+        visual_projs_path="maskclip_weights/ViT16_clip_weights.pth",
+        output_stride=32, pretrained_backbone="*********************",
+        config_option="frame2voxel", if_pretraining=False,
+        superpixel_sources="sp_slic_rgb", superpixel_size=25,
+        if_linear_probing=True, compute_dtype="bfloat16",
     )
     return dataclasses.replace(s, **overrides)
 
@@ -251,15 +326,11 @@ def flagship_batch(s, k1, batch=8, seed=0):
         t16=s.wire_t16))
     pack_s = time.perf_counter() - t0
     sp = block_superpixels(batch, H, W)
-    prior = 1.0 / (1.0 + np.arange(C)) ** 2
-    block_class = rng.choice(C, size=(batch, s.superpixel_size),
-                             p=prior / prior.sum())
-    pl = np.take_along_axis(block_class, sp.reshape(batch, -1),
-                            axis=1).reshape(batch, H, W)
+    pl = block_labels(rng, batch, H, W, C)
     out = {
         "frame": rng.uniform(0, 1, (batch, H, W, 3)).astype(np.float32),
         "label": rng.integers(0, C, (batch, H, W)).astype(np.int32),
-        "pl": pl.astype(np.int32),
+        "pl": pl,
         "superpixel": sp,
     }
     out.update(pack_wire_batch(wire, batch, T))
@@ -308,7 +379,7 @@ class OneBatchDataset:
 
     def __init__(self, host_batch, steps):
         self.host_batch = host_batch
-        self.n = steps * host_batch["frame"].shape[0]
+        self.n = steps * host_batch["label"].shape[0]
 
     def __len__(self):
         return self.n
@@ -359,12 +430,29 @@ def print_profile(avg, wall, n, unit, smi):
               f"x{e.count // n:<4d} {e.key[:90]}")
 
 
+def print_spans(avg, spans, n):
+    """Device ms per step by ``train/<part>`` span of ``training/steps``."""
+    if not spans:
+        return
+    # the backward kernels are launched by the autograd thread, outside
+    # the host-side span: the backward is what the other spans leave
+    busy = sum(e.self_device_time_total for e in avg) / 1e3
+    named = {k[len("train/"):]: v / n for k, v in spans.items()
+             if k != "train/backward"}
+    named["backward (the rest)"] = busy / n - sum(named.values())
+    print("device ms per step by part of the step (kernels launched "
+          "inside each span): " + ", ".join(
+              f"{k} {v:.2f}"
+              for k, v in sorted(named.items(), key=lambda kv: -kv[1])))
+
+
 def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
-                read_counts):
+                read_counts, ckpt_dir):
     """The flagship pretrain frame2voxel trainer at full width: an epoch of
     ``TRAIN_STEPS`` steps on one batch through ``Trainer.train_epoch``,
     timed steps, an eval step, a checkpoint served by ``StreamServer``, and
-    a profile. Returns the kernels' launch counts of the epoch."""
+    a profile. The checkpoint stays in ``ckpt_dir`` for the stages after
+    pretraining. Returns the kernels' launch counts of the epoch."""
     from openess_tpu_torch.data.device_voxelize import upload_wire
     from openess_tpu_torch.metrics import MetricsSemseg
     from openess_tpu_torch.serve_stream import StreamServer, synthetic_windows
@@ -412,7 +500,7 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
         torch.cuda.empty_cache()
         half = {k: v[:B // 2] for k, v in host_batch.items()}
         return train_phase(torch, dev, smi, settings, half, zero_counts,
-                           read_counts)
+                           read_counts, ckpt_dir)
     torch.cuda.synchronize()
     print(f"step 0 (warm-up, {time.perf_counter() - t0:.2f} s): {first}")
 
@@ -425,7 +513,7 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
     print(f"Trainer.train_epoch: {TRAIN_STEPS} steps in {epoch_s:.2f} s "
           f"({epoch_s * 1e3 / TRAIN_STEPS:.1f} ms per step, host clock, "
           f"batch upload included); epoch-average losses {avg_losses}; "
-          f"launches K1 {counts['K1']} K3 {counts['K3']} K2 {counts['K2']}")
+          "launches " + " ".join(f"{k} {v}" for k, v in counts.items()))
 
     # timed steps on the resident batch: CUDA events per step
     hist, events = [], []
@@ -471,6 +559,7 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
         "K1 once per step": counts["K1"] == TRAIN_STEPS,
         "K3 60 per step": counts["K3"] == 60 * TRAIN_STEPS,
         "K2 twice per step": counts["K2"] == 2 * TRAIN_STEPS,
+        "no K3 backward, no K4": counts["K3_bwd"] == counts["K4"] == 0,
         "optimizer steps": sb.step == 1 + 2 * TRAIN_STEPS,
     }
     print("  checks: " + ", ".join(
@@ -499,11 +588,10 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
                       for k, v in eval_ok.items()))
     if not all(eval_ok.values()):
         raise AssertionError(f"eval checks failed: {eval_ok}")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = ckpt.save_checkpoint(tmp, mset, trainer.optimizer, sb.step, 0)
-        size_mb = os.path.getsize(path) / 1e6
-        server = StreamServer(s, streams=1, device=dev, seed=1,
-                              checkpoint=tmp)
+    path = ckpt.save_checkpoint(ckpt_dir, mset, trainer.optimizer, sb.step, 0)
+    size_mb = os.path.getsize(path) / 1e6
+    server = StreamServer(s, streams=1, device=dev, seed=1,
+                          checkpoint=ckpt_dir)
     x, y, p, t = next(iter(synthetic_windows(1, 100_000, 480, 640)))
     wire = upload_wire(server.pack(x, y, p, t), dev)
     _, labels, logits = server.step(server.initial_state(), wire)
@@ -530,17 +618,7 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
     avg, wall, spans = device_profile(
         torch, lambda: [sb.train_step(batch, 0) for _ in range(n)])
     print_profile(avg, wall, n, "step", smi)
-    if spans:
-        # the backward kernels are launched by the autograd thread, outside
-        # the host-side span: the backward is what the other spans leave
-        busy = sum(e.self_device_time_total for e in avg) / 1e3
-        named = {k[len("train/"):]: v / n for k, v in spans.items()
-                 if k != "train/backward"}
-        named["backward (the rest)"] = busy / n - sum(named.values())
-        print("device ms per step by part of the step (kernels launched "
-              "inside each span): " + ", ".join(
-                  f"{k} {v:.2f}"
-                  for k, v in sorted(named.items(), key=lambda kv: -kv[1])))
+    print_spans(avg, spans, n)
     return counts
 
 
@@ -604,6 +682,545 @@ def train_reference_phase(torch, dev):
         raise AssertionError("the CUDA train step disagrees with the CPU one")
 
 
+def k3_fwd_check(torch, k3, gates, pc):
+    """K3's forward against its plain version on the same inputs: ``(max
+    abs error, the error in units of its bound)`` over ``h`` and ``c``, the
+    bound one bf16 ulp of the larger value plus ``K3_ABS_SLACK``."""
+    err, ulps = 0.0, 0.0
+    for a, b in zip(k3.fused_lstm_gates(gates, pc),
+                    k3.fused_lstm_gates_plain(gates, pc)):
+        diff = (a.float() - b.float()).abs()
+        mag = torch.maximum(a.float().abs(), b.float().abs())
+        err = max(err, diff.max().item())
+        ulps = max(ulps, (diff / (mag * 2.0 ** -7 + K3_ABS_SLACK))
+                   .max().item())
+    return err, ulps
+
+
+def k3_b8_phase(torch, k3, dev, flush):
+    """K3 at the other shapes the main paths launch it. The forward against
+    its plain version at B = 8 on the 440x640 levels (a train step, serving
+    eight streams), with its time and bound, and on the 200x352 levels of
+    DDD17 at B = 8 (the linear probe) and B = 1 (serving); the backward
+    against its plain version in bf16 and f32 at B = 8, with the library's
+    backward beside it. Returns ``(forward numbers, backward row)``."""
+    B = 8
+    phase("K3 forward vs plain at B = 8 (the train step's shapes, with time "
+          "and bound) and at the DDD17 shapes")
+    gen = torch.Generator(device=dev).manual_seed(1205)
+    fwd, fwd_err = np.zeros(2), 0.0
+    for frame, shapes, batches in (("440x640", K3_SHAPES, (B,)),
+                                   ("200x352", K3_DDD17_SHAPES, (B, 1))):
+        for b, (h, w, c) in ((b, hwc) for b in batches for hwc in shapes):
+            gates = (torch.randn((b, h, w, 4 * c), generator=gen, device=dev)
+                     * 2).to(torch.bfloat16)
+            pc = torch.randn((b, h, w, c), generator=gen,
+                             device=dev).to(torch.bfloat16)
+            err, ulps = k3_fwd_check(torch, k3, gates, pc)
+            ok = ulps <= 1.0
+            ms_k = cuda_ms(torch, lambda: k3.fused_lstm_gates(gates, pc),
+                           flush)
+            nbytes = b * h * w * 7 * c * 2
+            b_ms, _ = bound(nbytes, b * h * w * c * 30, F32_OPS_PER_S)
+            print(f"K3 fwd [{frame} {b}x{h}x{w}x{c}] max|kernel-plain| "
+                  f"{err:.3e} = {ulps:.3f} bf16 ulp (bound 1 ulp + "
+                  f"{K3_ABS_SLACK:.0e}) {'OK' if ok else 'FAIL'}; kernel_ms "
+                  f"{ms_k:.4f} bound_ms {b_ms:.4f} ({nbytes / 1e6:.1f} MB)")
+            if not ok:
+                raise AssertionError(
+                    f"K3 disagrees with its plain version: {ulps}")
+            fwd_err = max(fwd_err, err)
+            if shapes is K3_SHAPES:
+                fwd += (ms_k, b_ms)
+            del gates, pc
+
+    phase("K3 fused_lstm_gates backward vs plain (B = 8, 440x640 ConvLSTMs)")
+    row, worst = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        size = 2 if dtype == torch.bfloat16 else 4
+        sums = np.zeros(4)
+        lib_ok = True
+        for h, w, c in K3_SHAPES:
+            gates = (torch.randn((B, h, w, 4 * c), generator=gen, device=dev)
+                     * 2).to(dtype)
+            pc, dh, dcn = (torch.randn((B, h, w, c), generator=gen,
+                                       device=dev).to(dtype)
+                           for _ in range(3))
+            run_k = lambda: k3.fused_lstm_gates_bwd(gates, pc, dh, dcn)
+            run_p = lambda: k3.fused_lstm_gates_bwd_plain(gates, pc, dh, dcn)
+            got, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            err, ulps = 0.0, 0.0  # ulps: the error in units of its bound
+            for a, b in zip(got, ref):
+                diff = (a.float() - b.float()).abs()
+                err = max(err, diff.max().item())
+                if bf16:
+                    mag = torch.maximum(a.float().abs(), b.float().abs())
+                    tol = mag * 2.0 ** -7 + K3_ABS_SLACK
+                else:
+                    tol = K3_BWD_F32_REL_TOL * b.abs().max()
+                ulps = max(ulps, (diff / tol).max().item())
+            ok = ulps <= 1.0
+            # library yardstick: the backward of PyTorch's fused LSTM cell
+            # on the same data (its gate order is i, f, g, o; timed here,
+            # used nowhere in the port)
+            n = B * h * w
+            ms_l, lib_err = None, None
+            try:
+                lg = torch.cat([gates[..., :2 * c], gates[..., 3 * c:],
+                                gates[..., 2 * c:3 * c]], -1).reshape(n, 4 * c)
+                cx = pc.reshape(n, c)
+                _, cy, work = torch.ops.aten._thnn_fused_lstm_cell(
+                    lg, torch.zeros_like(lg), cx)
+                del lg
+                gh, gc = dh.reshape(n, c), dcn.reshape(n, c)
+                run_l = lambda: \
+                    torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+                        gh, gc, cx, cy, work, False)
+                lgates, lcx, _ = run_l()
+                lgates = torch.cat([lgates[:, :2 * c], lgates[:, 3 * c:],
+                                    lgates[:, 2 * c:3 * c]], -1)
+                lib_err = max(
+                    (lgates.float() - ref[0].reshape(n, 4 * c).float())
+                    .abs().max().item(),
+                    (lcx.float() - ref[1].reshape(n, c).float())
+                    .abs().max().item())
+                del lgates, lcx
+                ms_l = cuda_ms(torch, run_l, flush, iters=10)
+                del cy, work
+            except (RuntimeError, AttributeError, TypeError) as e:
+                lib_ok = False
+                print(f"  library backward not driven on this data: "
+                      f"{type(e).__name__}: {str(e)[:200]}")
+            ms_k = cuda_ms(torch, run_k, flush)
+            ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
+            nbytes = n * 12 * c * size
+            b_ms, _ = bound(nbytes, n * c * 60, F32_OPS_PER_S)
+            lib = ("none" if ms_l is None else
+                   f"{ms_l:.4f} (_thnn_fused_lstm_cell_backward_impl, "
+                   f"max|lib-plain| {lib_err:.3e})")
+            print(f"K3 bwd [{str(dtype).split('.')[-1]} {B}x{h}x{w}x{c}] "
+                  f"max|kernel-plain| {err:.3e} = {ulps:.3f} of the bound "
+                  f"({'1 bf16 ulp + 1e-6' if bf16 else '1e-5 x max|plain|'}) "
+                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
+                  f"{ms_p:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
+                  f"({nbytes / 1e6:.1f} MB)")
+            if not ok:
+                raise AssertionError(
+                    f"K3 backward disagrees with its plain version: {ulps}")
+            worst = max(worst, err) if dtype == torch.bfloat16 else worst
+            sums += (ms_k, ms_p, ms_l or 0.0, b_ms)
+            del gates, pc, dh, dcn, got, ref
+        if dtype == torch.bfloat16:
+            row = dict(ms=sums[0], plain_ms=sums[1],
+                       library_ms=sums[2] if lib_ok else None,
+                       bound_ms=sums[3], bound_by="bytes")
+        else:
+            row.update(ms_f32=sums[0], plain_ms_f32=sums[1],
+                       library_ms_f32=sums[2] if lib_ok else None,
+                       bound_ms_f32=sums[3])
+    k3_cell_trace(torch, dev)
+    return dict(ms_b8=fwd[0], bound_ms_b8=fwd[1], max_abs_err=fwd_err), dict(
+        name="K3 fused_lstm_gates backward (3 ConvLSTMs per window, B = 8)",
+        route="triton", source="openess_tpu_torch/ops/lstm_gates.py",
+        replaces="openess_tpu/ops/lstm_gates.py:88", max_abs_err=worst,
+        check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6 (f32: 1e-5 x max|plain|"
+              "), 3 shapes at B = 8; ms is the bf16 sum over the three",
+        **row,
+    )
+
+
+def k3_cell_trace(torch, dev):
+    """One ConvLSTM cell (C = 64 at 220x320, B = 8, bf16 compute, f32
+    parameters) forward and backward under the profiler: which device
+    kernels run around K3, so that a layout copy of ``gates`` or ``dgates``
+    (288 MB each here) between the gates conv and the kernels shows, and
+    fails the run."""
+    from openess_tpu_torch.models.e2vid import CL, ConvLSTMCell, nchw
+
+    print("one ConvLSTM cell under autograd (B=8, 220x320, C=64): device "
+          "kernels of forward + backward")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cell = ConvLSTMCell(64, 64, 3, fused_gates=True).to(dev)
+    rand = lambda: torch.randn((8, 64, 220, 320), generator=gen,
+                               device=dev).to(torch.bfloat16).contiguous(
+                                   memory_format=CL)
+    x, wgt = rand().requires_grad_(True), rand()
+    h0 = nchw(torch.zeros((8, 220, 320, 64), dtype=torch.bfloat16,
+                          device=dev))
+
+    def run():
+        hidden, _ = cell(x, (h0, h0))
+        (hidden * wgt).sum().backward()
+
+    run()  # cuDNN algorithm choice
+    avg, _, _ = device_profile(torch, run)
+    for e in sorted(avg, key=lambda e: -e.self_device_time_total):
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<3d} "
+              f"{e.key[:150]}")
+    # the cell's own torch.cat is a copy by design; anything else that
+    # copies more than a weight cast would be a layout copy
+    copies = [e for e in avg if "copy" in e.key.lower()
+              and "CatArray" not in e.key and e.self_device_time_total > 50]
+    print(f"  copy kernels above 0.05 ms, the cell's own cat apart: "
+          f"{[e.key[:60] for e in copies] or 'none'}")
+    if copies:
+        raise AssertionError(
+            "a layout copy runs between the gates conv and K3: "
+            f"{[e.key[:150] for e in copies]}")
+
+
+def block_labels(rng, batch, h, w, classes, rows=10, cols=10):
+    """Labels ``[batch, h, w]`` int32, constant per block of a rows x cols
+    grid, drawn from a skewed class distribution: a few steps can lower the
+    loss on them by learning the class prior."""
+    sp = block_superpixels(batch, h, w, rows, cols)
+    prior = 1.0 / (1.0 + np.arange(classes)) ** 2
+    block_class = rng.choice(classes, size=(batch, rows * cols),
+                             p=prior / prior.sum())
+    return np.take_along_axis(block_class, sp.reshape(batch, -1),
+                              axis=1).reshape(batch, h, w).astype(np.int32)
+
+
+def ddd17_batch(s, batch=8, seed=0):
+    """One synthetic DDD17 batch on the host: uniform integer-pixel events
+    on the 260x346 sensor, cut into T windows and packed onto the wire by
+    ``data/ddd17.py`` as the loader would, with block labels at 200x352.
+    Returns ``(batch, pack seconds)``."""
+    from openess_tpu_torch.data import ddd17
+
+    rng = np.random.default_rng(seed)
+    T, K = s.nr_events_data_b, s.nr_events_window_b
+    H, W = (int(v) for v in s.img_size_b)
+    windows = []
+    t0 = time.perf_counter()
+    for _ in range(batch):
+        ev = np.stack([
+            rng.integers(0, ddd17.WIDTH, T * K),
+            rng.integers(0, ddd17.HEIGHT, T * K),
+            np.sort(rng.integers(0, 10 ** 9, T * K)),
+            rng.integers(0, 2, T * K),
+        ], axis=1)
+        windows.append(ddd17.split_event_windows(ev, T, K,
+                                                 s.fixed_duration_b))
+    out = ddd17.wire_batch(s, windows)
+    pack_s = time.perf_counter() - t0
+    out["label"] = block_labels(rng, batch, H, W, s.semseg_num_classes)
+    return out, pack_s
+
+
+def k4_phase(torch, k1, dev, flush, host_batch):
+    """K4 against its plain version at the shapes the DDD17 paths launch
+    it: one window (serving) and the whole batch (NW = 160, the train
+    step), signed and with separate polarities. Returns the kernel row (the
+    signed NW = 160 launch: what the linear-probe step does)."""
+    from openess_tpu_torch.data.device_voxelize import WIRE_KEYS, upload_wire
+
+    phase("K4 voxelize_chunked_bilinear_t vs plain (260x346, 32k ev/window)")
+    d = upload_wire(host_batch, dev)
+    full = tuple(d[k].reshape((-1,) + d[k].shape[2:]) for k in WIRE_KEYS)
+    row, worst = {}, 0.0
+    for nw in (1, full[0].shape[0]):
+        args = tuple(a[:nw].contiguous() for a in full)
+        events = int(args[4].sum())
+        for separate in (False, True):
+            kw = dict(num_bins=5, height=260, width=346,
+                      separate_pol=separate)
+            run_k = lambda: k1.voxelize_chunked_bilinear_t(*args, **kw)
+            run_p = lambda: k1.voxelize_chunked_bilinear_t_plain(*args, **kw)
+            got, ref = run_k(), run_p()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            total = got.sum().item()
+            ok = err <= K4_REL_TOL * scale and scale > 0
+            ms_k = cuda_ms(torch, run_k, flush, iters=10)
+            ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
+            nbytes = (events * 7 + sum(a.numel() * a.element_size()
+                                       for a in args[4:]) + got.numel() * 4)
+            b_ms, b_by = bound(nbytes, events * 2 * 8, F32_OPS_PER_S)
+            tag = f"NW={nw}, {'separate' if separate else 'signed'} polarity"
+            print(f"K4 [{tag}] grid {tuple(got.shape)} max|kernel-plain| "
+                  f"{err:.3e} (max|plain| {scale:.3f}, bound "
+                  f"{K4_REL_TOL:.0e} x max; grid sum {total:.1f}) "
+                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
+                  f"{ms_p:.4f} bound_ms {b_ms:.4f} ({b_by}; {events} events, "
+                  f"{nbytes / 1e6:.1f} MB)")
+            if not ok:
+                raise AssertionError(
+                    f"K4 disagrees with its plain version [{tag}]: {err}")
+            worst = max(worst, err)
+            if nw > 1 and not separate:
+                row.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None)
+            else:
+                sfx = f"_nw{nw}" + ("_separate" if separate else "")
+                row.update({f"ms{sfx}": ms_k, f"plain_ms{sfx}": ms_p,
+                            f"bound_ms{sfx}": b_ms})
+            del got, ref
+    return dict(
+        name="K4 voxelize_chunked_bilinear_t (DDD17)", route="cuda",
+        source="openess_tpu_torch/csrc/voxelize_chunked.cu",
+        replaces="openess_tpu/ops/voxelize_chunked.py:353",
+        max_abs_err=worst,
+        check=f"ok: max|kernel-plain| <= {K4_REL_TOL:g} x max|plain|, NW = 1 "
+              "and 160, signed and separate polarities; ms is signed at "
+              "NW = 160", **row,
+    )
+
+
+def downstream_phase(torch, dev, smi, title, settings, host_batch, expect,
+                     trains, zero_counts, read_counts, loaded=None):
+    """A downstream stage at full width through ``Trainer``: a warm-up
+    step, an epoch of ``DOWNSTREAM_STEPS`` steps on one batch through
+    ``train_epoch`` (launch counts per step held to ``expect``), timed
+    steps, and a profile. ``trains(key)`` says which state-dict entries must
+    change; every other one must stay bit for bit. ``loaded`` maps entries
+    to the values they must hold before the first step (a checkpoint's).
+    Returns the epoch's launch counts."""
+    from openess_tpu_torch.training.trainer import Trainer, to_device
+
+    phase(title)
+    B = host_batch["label"].shape[0]
+    s = dataclasses.replace(settings, batch_size_b=B, save_checkpoint=False)
+    if B != settings.batch_size_b:
+        print(f"B = {settings.batch_size_b} did not fit the card's memory: "
+              f"running at B = {B}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = OneBatchDataset(host_batch, DOWNSTREAM_STEPS)
+    trainer = Trainer(s, data, data, seed=0, device=dev)
+    sb, mset = trainer.sb, trainer.mset
+    state0 = {f"{n}.{k}": v.clone() for n, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    n_train = sum(p.numel() for m in mset.modules.values()
+                  for p in m.parameters() if p.requires_grad)
+    print(f"task {mset.task}, {s.dataset_name_b} at "
+          f"{tuple(s.img_size_b)}, B={B}, T={s.nr_events_data_b}, "
+          f"{s.nr_events_window_b} events per window, "
+          f"{s.semseg_num_classes} classes, {s.compute_dtype}, K3 gates "
+          f"{'on' if s.e2vid_fused_gates else 'off'}, lr_voxel {s.lr_voxel}, "
+          f"augmentation {'on' if s.data_augmentation_train else 'off'}; "
+          f"{n_train} trainable parameters in "
+          f"{sum(trains(k) for k in state0)} tensors")
+    if loaded is not None:
+        same = all(torch.equal(state0[k], v.to(state0[k].dtype).to(dev))
+                   for k, v in loaded.items())
+        print(f"  {len(loaded)} tensors loaded from the pretrain checkpoint: "
+              f"{'equal to the file' if same else 'DIFFER from the file'}")
+        if not same or not loaded:
+            raise AssertionError("the pretrain checkpoint was not loaded")
+
+    batch = to_device(host_batch, dev)
+    # the loss on the batch as it is (eval mode, no augmentation), before
+    # and after the steps: the train steps' own losses are taken on randomly
+    # flipped copies and move by more than a small learning rate does
+    eval0 = float(sb.eval_step(batch)[1])
+    t0 = time.perf_counter()
+    try:
+        first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+    except torch.cuda.OutOfMemoryError:
+        # the one allowed retreat: the width stays, the batch halves
+        if B == 1:
+            raise
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"out of memory at B = {B} (peak {peak:.2f} GiB); halving B")
+        del trainer, sb, mset, batch, state0
+        torch.cuda.empty_cache()
+        half = {k: v[:B // 2] for k, v in host_batch.items()}
+        return downstream_phase(torch, dev, smi, title, settings, half,
+                                expect, trains, zero_counts, read_counts,
+                                loaded)
+    torch.cuda.synchronize()
+    print(f"step 0 (warm-up, {time.perf_counter() - t0:.2f} s): {first}")
+
+    n = DOWNSTREAM_STEPS
+    zero_counts()
+    t0 = time.perf_counter()
+    avg_losses = trainer.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
+          f"({epoch_s * 1e3 / n:.1f} ms per step, host clock, batch upload "
+          f"included); epoch-average losses {avg_losses}; launches "
+          + " ".join(f"{k} {v}" for k, v in counts.items()))
+
+    hist, events = [], []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = sb.train_step(batch, 0)
+        b.record()
+        hist.append(losses)
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    hist = [first] + [{k: float(v) for k, v in h.items()} for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step p50 {np.percentile(ms, 50):.1f} ms p95 "
+          f"{np.percentile(ms, 95):.1f} ms over {len(ms)} steps (CUDA "
+          f"events, batch resident); peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) at B={B}; on {smi}")
+    print("semseg_loss: step 0 " + f"{hist[0]['semseg_loss']:.4f}, epoch "
+          f"average {avg_losses['semseg_loss']:.4f}, timed steps "
+          + " ".join(f"{h['semseg_loss']:.4f}" for h in hist[1:]))
+    pred, loss = sb.eval_step(batch)
+    eval1 = float(loss)
+    print(f"eval_step loss on the same batch: {eval0:.4f} before the "
+          f"{sb.step} steps, {eval1:.4f} after")
+    state1 = {f"{n_}.{k}": v for n_, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    moved = {k for k in state0 if not torch.equal(state0[k], state1[k])}
+    want = {k for k in state0 if trains(k)}
+    checks = {
+        "every loss finite": all(np.isfinite(v) for h in hist
+                                 for v in h.values())
+        and all(np.isfinite(v) for v in avg_losses.values()),
+        "loss keys": set(first) == {"semseg_loss", "total_loss"},
+        "eval loss fell": eval1 < eval0,
+        f"the {len(want)} trainable tensors moved": want <= moved,
+        "everything else unchanged": moved <= want,
+        "optimizer steps": sb.step == 1 + 2 * n,
+    }
+    for k, per_step in expect.items():
+        checks[f"{k} {per_step} per step"] = counts[k] == per_step * n
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{title}: checks failed: {checks}")
+
+    H, W = (int(v) for v in s.img_size_b)
+    ok = (tuple(pred.shape) == (B, H, W) and bool(torch.isfinite(loss))
+          and 0 <= int(pred.min()) and int(pred.max()) < s.semseg_num_classes)
+    print(f"eval_step: pred {tuple(pred.shape)}, loss {float(loss):.4f} "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{title}: eval step failed")
+
+    print("trace: device busy time and idle share")
+    n = 2
+    avg, wall, spans = device_profile(
+        torch, lambda: [sb.train_step(batch, 0) for _ in range(n)])
+    print_profile(avg, wall, n, "step", smi)
+    print_spans(avg, spans, n)
+    return counts
+
+
+def finetune_reference_phase(torch, dev):
+    """One f32 fine-tune step with ``unfrozen_e2vid`` at 64x96, B = 2,
+    T = 3 on CUDA (K1, K3 forward and backward) against the same step on
+    the CPU (plain versions, autograd through the plain gates)."""
+    from openess_tpu_torch.data.synthetic import SyntheticESS
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.optim import make_optimizer
+    from openess_tpu_torch.training.steps import StepBuilder
+    from openess_tpu_torch.training.trainer import to_device
+
+    phase("fine-tune reference: f32 step on CUDA (K1, K3, K3 backward) vs "
+          "on the CPU (plain), 64x96, B=2, T=3")
+    s = finetune_settings(
+        dataset_name_b="synthetic_events", img_size_b=(64, 96),
+        semseg_num_classes=6, nr_events_data_b=3, batch_size_b=2,
+        compute_dtype="float32", e2vid_fused_gates=True,
+        load_pretrained_weights=False, data_augmentation_train=False)
+    ds = SyntheticESS(num_samples=2, height=64, width=96, num_classes=6,
+                      num_windows=3)
+    host_batch = ds.raw_wire_batch([0, 1])
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mset = build_models(s, seed=0, device=d)
+        sb = StepBuilder(s, mset, make_optimizer(s, mset), 1)
+        sb._set_mode(True)
+        total, losses = sb.compute_losses(
+            sb._with_windows(to_device(host_batch, d)), 0)
+        total.backward()
+        out[d.type] = (
+            float(losses["semseg_loss"].detach()),
+            {f"{n}.{k}": p.grad.detach().cpu()
+             for n, m in mset.modules.items()
+             for k, p in m.named_parameters()})
+        del mset, sb, total, losses
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    e2vid = plain = 0.0
+    for k in gc:
+        scale = gc[k].abs().max().item()
+        rel = (gg[k] - gc[k]).abs().max().item() / max(scale, 1e-30)
+        if k.startswith("front_sensor_b."):
+            if scale <= 0:
+                raise AssertionError(f"no gradient reached {k}")
+            e2vid = max(e2vid, rel)
+        elif k.startswith("back_end.decoder_ch"):
+            plain = max(plain, rel)
+    ok = (loss_rel <= TRAIN_LOSS_REL_TOL and plain <= TRAIN_GRAD_REL_TOL
+          and e2vid <= TRAIN_INORM_GRAD_REL_TOL)
+    print(f"max rel |cuda-cpu|: semseg_loss {loss_rel:.3e} (bound "
+          f"{TRAIN_LOSS_REL_TOL:.0e}); gradients of decoder_ch256/512 "
+          f"{plain:.3e} of each tensor's max (bound "
+          f"{TRAIN_GRAD_REL_TOL:.0e}); of E2VID's 14 tensors, all non-zero, "
+          f"{e2vid:.3e} (bound {TRAIN_INORM_GRAD_REL_TOL:.0e}: they pass "
+          f"the head's instance norms) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CUDA fine-tune step disagrees with the "
+                             "CPU one")
+
+
+def ddd17_serving_phase(torch, dev, smi, zero_counts, read_counts):
+    """The streaming server on the DDD17 settings, S = 1, K3 gates: K4
+    once and K3 three times per window."""
+    from openess_tpu_torch.models.e2vid import initial_stream_state
+    from openess_tpu_torch.serve_stream import (
+        StreamServer,
+        report,
+        serve,
+        synthetic_windows,
+    )
+
+    phase("serving DDD17: openess_tpu_torch.serve_stream at full width, "
+          "bf16, S=1")
+    s = ddd17_probe_settings(e2vid_fused_gates=True)
+    server = StreamServer(s, streams=1, device=dev)
+    n = 10
+    zero_counts()
+    r = serve(server, synthetic_windows(n, s.nr_events_window_b,
+                                        server.sensor_h, server.sensor_w))
+    torch.cuda.synchronize()
+    got = read_counts()
+    for line in report(r, 20.0, dev):
+        print("  " + line)
+    lat = r.latency_ms
+    print(f"  p50 {np.percentile(lat, 50):.2f} ms p95 "
+          f"{np.percentile(lat, 95):.2f} ms per window: pack "
+          f"{np.median(r.pack_ms):.2f} upload {np.median(r.upload_ms):.2f} "
+          f"device {np.median(r.device_ms):.2f} (p95 "
+          f"{np.percentile(r.device_ms, 95):.2f}) ms; launches "
+          + " ".join(f"{k} {v}" for k, v in got.items()) + f"; on {smi}")
+    want = initial_stream_state(1, 200, 352, dtype=torch.bfloat16, device=dev)
+    checks = {
+        "sensor 260x346, integer pixels": (server.sensor_h, server.sensor_w)
+        == (260, 346) and server.integer_coords,
+        "logits finite": bool(torch.isfinite(r.logits).all()),
+        "logits shape": tuple(r.logits.shape) == (1, 200, 352, 6),
+        "labels uint8 [1,200,352]": r.labels.dtype == np.uint8
+        and r.labels.shape == (1, 200, 352),
+        "labels in [0, 6)": int(r.labels.max()) < 6,
+        "carried state shapes": len(r.carry) == len(want) and all(
+            a.shape == b.shape and a.dtype == b.dtype
+            for pa, pb in zip(r.carry, want) for a, b in zip(pa, pb)),
+        "K4 once per window": got["K4"] == n,
+        "K3 three per window": got["K3"] == 3 * n,
+        "no other kernel": got["K1"] == got["K2"] == got["K3_bwd"] == 0,
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"DDD17 serving checks failed: {checks}")
+    return got
+
+
 def main():
     import torch
 
@@ -651,21 +1268,25 @@ def main():
         for h, w, c in K3_SHAPES:
             g = torch.zeros((1, 1, 16, 4 * c), dtype=torch.bfloat16,
                             device=dev)
-            k3.fused_lstm_gates(g, torch.zeros_like(g[..., :c]))
+            z = torch.zeros_like(g[..., :c])
+            k3.fused_lstm_gates(g, z)
+            k3.fused_lstm_gates_bwd(g, z, z, z)
         torch.cuda.synchronize()
         t_triton = time.perf_counter() - t0
         lib_paths = [f.result() for f in nvcc]
     t_nvcc = time.perf_counter() - t0
     k1._kernel()
     k2._kernel()
-    for name, lib_path in zip(("K1", "K2"), lib_paths):
+    k1._kernel("voxelize_chunked_bilinear_t", 10)
+    for name, lib_path in zip(("K1 and K4", "K2"), lib_paths):
         print(f"{name} nvcc build+load (both sources in parallel "
               f"{t_nvcc:.1f} s) -> {lib_path}")
         with open(os.path.splitext(lib_path)[0] + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
                     print("  ptxas:", line.strip())
-    print(f"K3 triton compile (3 specializations) {t_triton:.1f} s")
+    print(f"K3 triton compile (forward and backward, 3 specializations "
+          f"each) {t_triton:.1f} s")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = {}
@@ -728,15 +1349,8 @@ def main():
                  * 2).to(torch.bfloat16)
         pc = torch.randn((1, h, w, c), generator=gen,
                          device=dev).to(torch.bfloat16)
-        hk, ck = k3.fused_lstm_gates(gates, pc)
         hp, cp = k3.fused_lstm_gates_plain(gates, pc)
-        err, ulps = 0.0, 0.0
-        for a, b in ((hk, hp), (ck, cp)):
-            diff = (a.float() - b.float()).abs()
-            mag = torch.maximum(a.float().abs(), b.float().abs())
-            err = max(err, diff.max().item())
-            ulps = max(ulps, (diff / (mag * 2.0 ** -7 + K3_ABS_SLACK))
-                       .max().item())
+        err, ulps = k3_fwd_check(torch, k3, gates, pc)
         ok = ulps <= 1.0
         run_k = lambda: k3.fused_lstm_gates(gates, pc)
         run_p = lambda: k3.fused_lstm_gates_plain(gates, pc)
@@ -772,8 +1386,13 @@ def main():
         replaces="openess_tpu/ops/lstm_gates.py:75",
         max_abs_err=k3_err, ms=sums[0], plain_ms=sums[1], bound_ms=sums[3],
         bound_by="bytes", library_ms=sums[2],
-        check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6, 3 shapes",
+        check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6 at every shape a main "
+              "path launches: 440x640 levels at B = 1 and 8, 200x352 levels "
+              "at B = 1 and 8; ms is the B = 1 sum over the 440x640 levels",
     )
+    k3_b8, kernels["K3_bwd"] = k3_b8_phase(torch, k3, dev, flush)
+    k3_b8["max_abs_err"] = max(k3_b8["max_abs_err"], k3_err)
+    kernels["K3"].update(k3_b8)
     kernels["K2"] = k2_phase(torch, k2, dev, flush)
 
     phase("serving: openess_tpu_torch.serve_stream at full width, bf16")
@@ -781,7 +1400,9 @@ def main():
           "slic.yaml, built in code (config_option=frame2voxel); random "
           "weights, seed 0")
     counters = {"K1": k1.voxelize_chunked_trilinear,
-                "K2": k2.segment_pool_sums, "K3": k3.fused_lstm_gates}
+                "K2": k2.segment_pool_sums, "K3": k3.fused_lstm_gates,
+                "K3_bwd": k3.fused_lstm_gates_bwd,
+                "K4": k1.voxelize_chunked_bilinear_t}
 
     def zero_counts():
         for fn in counters.values():
@@ -831,7 +1452,8 @@ def main():
             "carried state shapes": shapes_ok,
             "K1 once per window": n1 == n,
             "K3 three per window": n3 == (3 * n if fused else 0),
-            "K2 not on the serving path": got["K2"] == 0,
+            "K2, K3 backward, K4 not on the DSEC serving path":
+            got["K2"] == got["K3_bwd"] == got["K4"] == 0,
         }
         print("  checks: " + ", ".join(
             f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
@@ -875,21 +1497,63 @@ def main():
           f"{host_batch['ev_x'].shape[2]}")
 
     kernels["K1"].update(k1_nw160_phase(torch, k1, dev, flush, host_batch))
-    del flush
 
-    train_launches = train_phase(torch, dev, smi, settings, host_batch,
-                                 zero_counts, read_counts)
-    train_reference_phase(torch, dev)
+    launches = {"serving": serving_launches}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        launches["train"] = train_phase(
+            torch, dev, smi, settings, host_batch, zero_counts, read_counts,
+            ckpt_dir)
+        train_reference_phase(torch, dev)
+
+        # the stage after pretraining on DSEC: E2VID and the head start
+        # from the checkpoint just written, the labels are the batch's
+        # block pseudo-labels
+        from openess_tpu_torch.training.checkpoint import read_model_state
+
+        saved = read_model_state(ckpt_dir)
+        loaded = {f"{n}.{k}": v for n in ("front_sensor_b", "back_end")
+                  for k, v in saved[n].items()}
+        ft_batch = {k: v for k, v in host_batch.items()
+                    if k.startswith("ev_")}
+        ft_batch["label"] = host_batch["pl"]
+        launches["finetune"] = downstream_phase(
+            torch, dev, smi,
+            "fine-tune: DSEC, unfrozen_e2vid, at full width, bf16 "
+            "(Trainer, from the pretrain checkpoint)",
+            finetune_settings(e2vid_fused_gates=True,
+                              pretrained_file=ckpt_dir),
+            ft_batch, {"K1": 1, "K3": 60, "K3_bwd": 60, "K2": 0, "K4": 0},
+            lambda k: not k.endswith("text_embeddings"),
+            zero_counts, read_counts, loaded=loaded)
+        del saved, loaded, ft_batch
+    del host_batch
+    finetune_reference_phase(torch, dev)
+
+    phase("pack one DDD17 batch (B=8, T=20, 32k events per window)")
+    probe = ddd17_probe_settings(e2vid_fused_gates=True)
+    ddd17_host, pack_s = ddd17_batch(probe)
+    print(f"numpy packer: {pack_s:.1f} s for {8 * 20} windows (host, "
+          f"set-up); wire chunk axis {ddd17_host['ev_x'].shape[2]}")
+    kernels["K4"] = k4_phase(torch, k1, dev, flush, ddd17_host)
+    del flush
+    launches["probe"] = downstream_phase(
+        torch, dev, smi,
+        "linear probe: DDD17 at full width, bf16 (Trainer)",
+        probe, ddd17_host,
+        {"K4": 1, "K3": 60, "K3_bwd": 0, "K1": 0, "K2": 0},
+        lambda k: ".linear_probe." in k, zero_counts, read_counts)
+    launches["serving_ddd17"] = ddd17_serving_phase(
+        torch, dev, smi, zero_counts, read_counts)
 
     phase("summary")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for key in ("K1", "K3", "K2"):
+    for key in ("K1", "K3", "K3_bwd", "K2", "K4"):
         row = kernels[key]
-        row["launches_serving"] = serving_launches[key]
-        row["launches_train"] = train_launches[key]
-        row["launches"] = serving_launches[key] + train_launches[key]
+        for path, counts in launches.items():
+            row[f"launches_{path}"] = counts[key]
+        row["launches"] = sum(counts[key] for counts in launches.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{key} was never launched on a main path")
         rows.append({k: row[k] for k in order}

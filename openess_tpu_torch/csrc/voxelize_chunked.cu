@@ -1,5 +1,9 @@
+// K1 and K4: the two voxelizers of the sorted-chunk event wire, for Hopper
+// (sm_90a). K1 (tri_splat, DSEC) is described first, K4 (bil_splat, DDD17)
+// above its kernel.
+//
 // K1: signed trilinear splat of the sorted-chunk event wire into per-window
-// voxel grids, for Hopper (sm_90a).
+// voxel grids.
 //
 // Replaces openess_tpu/ops/voxelize_chunked.py:_tri_kernel (reached through
 // _call and voxelize_chunked_trilinear). It computes the same function:
@@ -96,6 +100,80 @@ tri_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
   }
 }
 
+// K4: DDD17 voxelizer, exact pixel and bilinear in time.
+//
+// Replaces openess_tpu/ops/voxelize_chunked.py:_bil_kernel (reached through
+// _call and voxelize_chunked_bilinear_t). It computes the same function: an
+// event's integer pixel (xi, yi) = trunc(x), trunc(y) gets 1 - dts in time
+// bin ti = trunc(tn) and dts = tn - ti in bin ti + 1 where that bin exists.
+// The weights are signed by v = 2p - 1 into `bins` channels, or, with
+// separate_pol, unsigned into the positive (v > 0) or negative block of
+// 2 * bins channels. An event adds nothing when tn < 0, when its slot is
+// padding, when its pixel is outside the frame or outside its chunk's block
+// of the TPU kernel's padded grid, rows [r0, r0 + 16) and columns
+// [c0, c0 + 128): the TPU kernel's one-hots are zero there. The wire is
+// dequantized here as in K1 (the TPU path's _prep pass), in f32; the TPU
+// kernel rounds 1 - dts and dts to bf16 for its matrix unit, this one does
+// not.
+//
+// It is not the TPU kernel's one-hot matmul: a scatter with two f32 atomics
+// per event, one block per (window, chunk), threads striding over the
+// chunk's events. What bounds it on an H100: per 32k-event DDD17 window it
+// reads 0.22 MB of wire and writes a 5 x 260 x 346 f32 grid (1.8 MB, zero
+// filled by the wrapper), microseconds of HBM traffic; the 64k atomics per
+// window resolve in L2. Offsets into the grid are 64-bit.
+constexpr int kRowsBil = 16;   // TILE_ROWS
+constexpr int kColsBil = 128;  // _COLS_BIL
+
+template <bool kT16>
+__global__ void __launch_bounds__(kThreads)
+bil_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
+          const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
+          const int32_t* __restrict__ counts, const int32_t* __restrict__ desc,
+          const float* __restrict__ t_range, float* __restrict__ out,
+          int nbc, int chunk, int bins, int separate_pol, int height,
+          int width, int r0_max, int c0_max) {
+  const int w = blockIdx.y;
+  const long long wc = (long long)w * nbc + blockIdx.x;
+  const int n = min(counts[wc], chunk);
+  if (n <= 0) return;
+  // packed descriptor, clamped as the TPU wrapper clamps it
+  // (voxelize_chunked.py:539-540)
+  const int d = desc[wc];
+  const int r0 = min(max(d & 0xFFFF, 0), r0_max);
+  const int c0 = min(max(d >> 16, 0), c0_max);
+  const int row_hi = min(r0 + kRowsBil, height);
+  const int col_hi = min(c0 + kColsBil, width);
+  const float tb = (float)(bins - 1);
+  const float rng = kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f);
+  const int cout = separate_pol ? 2 * bins : bins;
+  const long long plane = (long long)height * width;
+  float* grid = out + (long long)w * cout * plane;
+  const long long base = wc * chunk;
+
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const long long s = base + e;
+    const float x = (float)xq[s] * kInvFixedPoint;
+    const float y = (float)yq[s] * kInvFixedPoint;
+    float tn;
+    if (kT16) {
+      tn = tb * (float)((const uint16_t*)t_rel)[s] * (1.0f / 65535.0f);
+    } else {
+      tn = tb * ((const float*)t_rel)[s] / rng;
+    }
+    if (!(tn >= 0.0f)) continue;
+    const int xi = (int)x, yi = (int)y, ti = (int)tn;
+    if (xi < c0 || xi >= col_hi || yi < r0 || yi >= row_hi) continue;
+    const float dts = tn - (float)ti;
+    const float v = 2.0f * (float)pq[s] - 1.0f;
+    const float sign = separate_pol ? 1.0f : v;
+    const int ch = (separate_pol && !(v > 0.0f)) ? bins + ti : ti;
+    float* cell = grid + (long long)ch * plane + (long long)yi * width + xi;
+    if (ti < bins) atomicAdd(cell, sign * (1.0f - dts));
+    if (ti + 1 < bins) atomicAdd(cell + plane, sign * dts);
+  }
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. Pointers are device pointers; out must hold
@@ -119,6 +197,33 @@ extern "C" int voxelize_chunked_trilinear(
         (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
         (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
         (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Plain C entry for ctypes (K4). out must hold nw * cout * height * width
+// zeros, cout = separate_pol ? 2 * bins : bins. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+extern "C" int voxelize_chunked_bilinear_t(
+    const void* xq, const void* yq, const void* pq, const void* t_rel,
+    const void* counts, const void* desc, const void* t_range, void* out,
+    int nw, int nbc, int chunk, int bins, int separate_pol, int height,
+    int width, int r0_max, int c0_max, int t16, void* stream) {
+  if (nw <= 0 || nbc <= 0 || chunk <= 0) return 0;
+  const dim3 grid(nbc, nw);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (t16) {
+    bil_splat<true><<<grid, kThreads, 0, st>>>(
+        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+        (float*)out, nbc, chunk, bins, separate_pol, height, width, r0_max,
+        c0_max);
+  } else {
+    bil_splat<false><<<grid, kThreads, 0, st>>>(
+        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+        (float*)out, nbc, chunk, bins, separate_pol, height, width, r0_max,
+        c0_max);
   }
   return (int)cudaGetLastError();
 }

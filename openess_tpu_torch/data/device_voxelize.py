@@ -15,9 +15,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from openess_tpu_torch.config.settings import Settings
-from openess_tpu_torch.ops.voxelize_chunked import voxelize_chunked_trilinear
+from openess_tpu_torch.ops.voxelize_chunked import (
+    voxelize_chunked_bilinear_t,
+    voxelize_chunked_trilinear,
+)
 
 WIRE_KEYS = (
     "ev_x", "ev_y", "ev_p", "ev_t", "ev_counts", "ev_r0", "ev_trange",
@@ -58,9 +62,11 @@ def upload_wire(batch: dict, device) -> dict:
 
 def voxelize_wire(s: Settings, batch: dict) -> torch.Tensor:
     """Chunked wire -> planar ``[B, T, C, H_out, W_out]`` voxel windows in
-    the compute dtype, with the dataset's post-ops: DSEC is voxelized at the
-    480x640 sensor size and its bottom 40 rows cropped; the synthetic
-    dataset is voxelized at ``img_size_b`` with no crop."""
+    the compute dtype, with the dataset's post-ops: DSEC is voxelized (K1)
+    at the 480x640 sensor size and its bottom 40 rows cropped; DDD17 is
+    voxelized (K4) at the 260x346 sensor size, resized to 352 columns
+    (bilinear, ``align_corners=True``) and its bottom 60 rows cropped; the
+    synthetic dataset is voxelized (K1) at ``img_size_b`` with no crop."""
     b, t, nbc, e = batch["ev_x"].shape
     args = tuple(
         batch[k].reshape((b * t,) + batch[k].shape[2:])
@@ -68,11 +74,23 @@ def voxelize_wire(s: Settings, batch: dict) -> torch.Tensor:
     ) + (batch["ev_trange"].reshape(b * t),)
     bins = s.nr_temporal_bins_b
     if s.dataset_name_b == "DDD17_events":
-        raise NotImplementedError(
-            "the DDD17 wire (K4 bilinear-t voxelizer, 346->352 resize) is "
-            "not ported yet: ROADMAP Queue 1, DDD17"
+        from openess_tpu_torch.data.ddd17 import (
+            CROP_BOTTOM,
+            HEIGHT,
+            RESIZE_W,
+            WIDTH,
         )
-    if s.dataset_name_b == "DSEC_events":
+
+        g = voxelize_chunked_bilinear_t(
+            *args, num_bins=bins, height=HEIGHT, width=WIDTH,
+            separate_pol=s.separate_pol_b, normalize=s.normalize_event_b,
+        )  # [B*T, C, 260, 346]
+        # resize, then crop, as the JAX package does; the grid stays planar
+        # (ops/resize.resize_bilinear is this call on an NHWC tensor)
+        g = F.interpolate(g, size=(HEIGHT, RESIZE_W), mode="bilinear",
+                          align_corners=True)
+        g = g[:, :, :HEIGHT - CROP_BOTTOM]
+    elif s.dataset_name_b == "DSEC_events":
         g = voxelize_chunked_trilinear(
             *args, num_bins=bins, height=DSEC_HEIGHT, width=DSEC_WIDTH,
             normalize=s.normalize_event_b,

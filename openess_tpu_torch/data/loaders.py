@@ -14,8 +14,8 @@ def build_datasets(s: Settings):
     name = s.dataset_name_b
     if not name.startswith("synthetic"):
         raise NotImplementedError(
-            f"dataset {name!r}: the DSEC loader is ROADMAP Queue 1 item 8, "
-            "DDD17 item 7; ported: synthetic_events"
+            f"dataset {name!r}: reading DSEC and DDD17 from disk is ROADMAP "
+            "Queue 1 item 8 (real-data loaders); ported: synthetic_events"
         )
     if s.wire_format != "raw_events":
         raise NotImplementedError(

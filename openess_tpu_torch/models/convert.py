@@ -68,7 +68,8 @@ def e2vid_state_dict_from_jax(params: dict, prefix: str = "unetrecurrent.") -> d
 
 def semseg_state_dict_from_jax(params: dict, text) -> dict:
     """SemSegE2VID params and text embeddings ``[C, 512]`` -> ``state_dict``
-    of :class:`SemSegE2VID`."""
+    of :class:`SemSegE2VID` (with ``linear_probe.*`` when the tree has
+    it)."""
     sd: dict = {}
     for i in range(5):
         r = params[f"ds1_res{i}"]
@@ -85,6 +86,8 @@ def semseg_state_dict_from_jax(params: dict, text) -> dict:
         _conv(sd, torch_name + ".model.0", params[jax_name]["conv"])
     _conv(sd, "decoder_ch256.0", params["decoder_ch256"])
     _conv(sd, "decoder_ch512.0", params["decoder_ch512"])
+    if "linear_probe" in params:
+        _conv(sd, "linear_probe", params["linear_probe"])
     sd["text_embeddings"] = _t(text)
     return sd
 

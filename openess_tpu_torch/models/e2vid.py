@@ -14,6 +14,14 @@ Layouts: the public functions take and return NHWC tensors as the JAX
 package does (windows are planar ``[B, bins, H, W]`` where JAX's are).
 Inside, every activation is an NCHW view of a channels-last tensor, so the
 NHWC <-> NCHW conversions at the boundary are free permutations.
+
+Dtypes: every conv of the head and the encoders computes in its input's
+dtype and casts its parameters per call (:class:`CastConv2d`), so the
+latent path computes in the dtype of the windows it is given (the decode
+path's transposed convs, which never train here, want their stored dtype). A frozen E2VID is stored in that dtype and the cast is
+a no-op; a trainable one (the ``unfrozen_e2vid`` fine-tune) keeps f32
+parameters under a bf16 compute dtype, as the flax module does, and the
+loop over the T windows runs under autograd.
 """
 from __future__ import annotations
 
@@ -40,13 +48,24 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1).contiguous()
 
 
+class CastConv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in its input's dtype: the parameters are
+    cast per call (a no-op when they already match). A trainable module
+    keeps f32 parameters under a bf16 compute dtype, as the flax modules
+    do."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class ConvLayer(nn.Module):
     """Conv + optional ReLU (submodules.py ConvLayer, norm=None)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  relu=True):
         super().__init__()
-        self.conv2d = nn.Conv2d(in_ch, out_ch, kernel_size, stride, padding)
+        self.conv2d = CastConv2d(in_ch, out_ch, kernel_size, stride, padding)
         self.relu = relu
 
     def forward(self, x):
@@ -66,7 +85,7 @@ class ConvLSTMCell(nn.Module):
     def __init__(self, in_ch, hidden, kernel_size=3, fused_gates=False):
         super().__init__()
         self.fused_gates = fused_gates
-        self.Gates = nn.Conv2d(
+        self.Gates = CastConv2d(
             in_ch + hidden, 4 * hidden, kernel_size, padding=kernel_size // 2
         )
 
@@ -106,8 +125,8 @@ class ResidualBlock(nn.Module):
 
     def __init__(self, ch):
         super().__init__()
-        self.conv1 = nn.Conv2d(ch, ch, 3, padding=1)
-        self.conv2 = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv1 = CastConv2d(ch, ch, 3, padding=1)
+        self.conv2 = CastConv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
         y = F.relu(self.conv1(x))
@@ -287,8 +306,7 @@ class E2VIDReconstructor(nn.Module):
         states = initial_stream_state(
             b, h, w, num_encoders=len(self.unetrecurrent.encoders),
             base_num_channels=self.base_num_channels,
-            dtype=self.unetrecurrent.head.conv2d.weight.dtype,
-            device=windows.device,
+            dtype=windows.dtype, device=windows.device,
         )
         imgs, latent = [], None
         for ti in range(t):

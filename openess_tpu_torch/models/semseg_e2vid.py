@@ -7,14 +7,15 @@ Module names are the reference's, so the state-dict keys are the ones
 ``decoder_scale_1.{0..4}.model.{0,3}.*`` (INSResBlocks),
 ``decoder_scale_1.5.model.0.*``, ``decoder_scale_{2,3}.{0,1}.model.0.*``,
 ``decoder_scale_4.0.model.0.*``, ``decoder_ch256.0.*``,
-``decoder_ch512.0.*`` and the ``text_embeddings`` buffer.
+``decoder_ch512.0.*``, ``linear_probe.*`` (linear probing only) and the
+``text_embeddings`` buffer.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from openess_tpu_torch.models.e2vid import nchw, nhwc
+from openess_tpu_torch.models.e2vid import CastConv2d, nchw, nhwc
 from openess_tpu_torch.ops.resize import upsample2x_nearest
 
 
@@ -32,16 +33,6 @@ def instance_norm(x: torch.Tensor) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     def forward(self, x):
         return instance_norm(x)
-
-
-class CastConv2d(nn.Conv2d):
-    """``nn.Conv2d`` that computes in its input's dtype: the parameters are
-    cast per call (a no-op when they already match). A trainable head keeps
-    f32 parameters under a bf16 compute dtype, as the flax module does."""
-
-    def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def _conv3(cin, cout):
@@ -83,10 +74,13 @@ class SemSegE2VID(nn.Module):
     ``forward(latent)`` takes the NHWC latent pyramid
     ``{"2": 64ch@1/2, "4": 128ch@1/4, "8": 256ch@1/8}`` and returns NHWC
     ``(logits [B, H, W, num_classes], feat256 [B, H, W, 256])``; the logits
-    are the 512-d pixel features against the ``text_embeddings`` buffer.
+    are the 512-d pixel features against the ``text_embeddings`` buffer,
+    with ``linear_probe`` passed through one more 1x1 conv over the classes
+    (the only part a linear probe trains).
     """
 
-    def __init__(self, input_c=256, num_classes=11, text_embed_dim=512):
+    def __init__(self, input_c=256, num_classes=11, text_embed_dim=512,
+                 linear_probe=False):
         super().__init__()
         t = input_c
         self.decoder_scale_1 = nn.Sequential(
@@ -104,6 +98,9 @@ class SemSegE2VID(nn.Module):
         self.register_buffer(
             "text_embeddings", torch.zeros(num_classes, text_embed_dim)
         )
+        self.linear_probe = (
+            CastConv2d(num_classes, num_classes, 1) if linear_probe else None
+        )
 
     def forward(self, latent: dict):
         x = self.decoder_scale_1(nchw(latent["8"]))
@@ -118,4 +115,6 @@ class SemSegE2VID(nn.Module):
         feat256 = self.decoder_ch256(x)
         x512 = nhwc(self.decoder_ch512(feat256))
         logits = torch.matmul(x512, self.text_embeddings.to(x512.dtype).t())
+        if self.linear_probe is not None:
+            logits = nhwc(self.linear_probe(nchw(logits)))
         return logits, nhwc(feat256)

@@ -5,7 +5,10 @@ from openess_tpu_torch.ops.lstm_gates import fused_lstm_gates
 from openess_tpu_torch.ops.resize import resize_bilinear, upsample2x_nearest
 from openess_tpu_torch.ops.segment_pool import segment_mean_pool
 from openess_tpu_torch.ops.voxelize import normalize_nonzero
-from openess_tpu_torch.ops.voxelize_chunked import voxelize_chunked_trilinear
+from openess_tpu_torch.ops.voxelize_chunked import (
+    voxelize_chunked_bilinear_t,
+    voxelize_chunked_trilinear,
+)
 
 __all__ = [
     "confusion_matrix",
@@ -14,5 +17,6 @@ __all__ = [
     "resize_bilinear",
     "segment_mean_pool",
     "upsample2x_nearest",
+    "voxelize_chunked_bilinear_t",
     "voxelize_chunked_trilinear",
 ]

@@ -1,4 +1,5 @@
-"""Sorted-chunk event wire and the K1 trilinear voxelizer.
+"""Sorted-chunk event wire and its two voxelizers: K1 (DSEC, trilinear)
+and K4 (DDD17, exact pixel and bilinear in time).
 
 Host half (numpy, bit-identical to ``openess_tpu/ops/voxelize_chunked.py``):
 per window, the events are quantized to the wire (x, y int16 fixed point
@@ -14,6 +15,15 @@ on a CPU tensor it runs :func:`voxelize_chunked_trilinear_plain`, the same
 dequantization and the same 8 corners through ``index_put_``. Both are
 exact f32 splats: the TPU kernel's bf16 multiplicands (about 5e-3 of the
 grid max) are not reproduced.
+
+:func:`voxelize_chunked_bilinear_t` is the DDD17 counterpart: integer
+pixels, weights ``1 - dts`` and ``dts`` into time bins ``ti`` and ``ti + 1``,
+signed by polarity or split into positive and negative channel blocks. On a
+CUDA tensor it launches the K4 kernel (same source file, replacing the TPU
+kernel ``_bil_kernel``); on a CPU tensor
+:func:`voxelize_chunked_bilinear_t_plain`. Exact f32 as well: it differs
+from the TPU kernel by the bf16 rounding of the two time weights (about
+4e-3 relative) and from the exact scatter by f32 round-off.
 """
 from __future__ import annotations
 
@@ -316,20 +326,34 @@ def voxelize_chunked_trilinear_plain(
     return out.view(nw, num_bins, height, width)
 
 
-_SIG = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-)
-
-
 @functools.cache
-def _kernel():
+def _kernel(name: str = "voxelize_chunked_trilinear", n_ints: int = 9):
+    """The C entry ``name`` of the built library: 8 device pointers,
+    ``n_ints`` ints, the stream."""
     from openess_tpu_torch.ops import _build
 
     lib = _build.load("voxelize_chunked.cu")
-    fn = lib.voxelize_chunked_trilinear
-    fn.argtypes = _SIG
+    fn = getattr(lib, name)
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(fn, wire, grid, *ints):
+    """Check the CUDA wire, launch ``fn`` on the current stream into the
+    zero-filled ``grid`` and raise on a refused launch."""
+    _check_wire(*wire)
+    if not all(a.is_contiguous() for a in wire):
+        raise ValueError("wire tensors must be contiguous")
+    dev = grid.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(a.data_ptr() for a in wire), grid.data_ptr(), *ints,
+                 int(wire[3].dtype == torch.uint16), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 
 
 def voxelize_chunked_trilinear(
@@ -355,26 +379,16 @@ def voxelize_chunked_trilinear(
             num_bins=num_bins, height=height, width=width,
         )
     elif dev.type == "cuda":
-        _check_wire(xq, yq, pq, t_rel, counts, tile_r0, t_range)
-        arrays = (xq, yq, pq, t_rel, counts, tile_r0, t_range)
-        if not all(a.is_contiguous() for a in arrays):
-            raise ValueError("K1 wire tensors must be contiguous")
         nw, nbc, e = xq.shape
         h_pad, w_pad = padded_grid(height, width)
         grid = torch.zeros(
             (nw, num_bins, height, width), dtype=torch.float32, device=dev
         )
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = _kernel()(
-                *(a.data_ptr() for a in arrays), grid.data_ptr(),
-                nw, nbc, e, num_bins, height, width,
-                h_pad - _ROWS_TRI, w_pad - _COLS_TRI,
-                int(t_rel.dtype == torch.uint16), stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"K1 voxelize_chunked_trilinear launch failed: "
-                               f"cudaError {err}")
+        _launch(
+            _kernel(), (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
+            nw, nbc, e, num_bins, height, width,
+            h_pad - _ROWS_TRI, w_pad - _COLS_TRI,
+        )
         voxelize_chunked_trilinear.launches += 1
     else:
         raise ValueError(f"unsupported device for K1: {dev}")
@@ -386,3 +400,103 @@ def voxelize_chunked_trilinear(
 
 
 voxelize_chunked_trilinear.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# device half: K4 (DDD17)
+# ---------------------------------------------------------------------------
+
+
+def padded_grid_bilinear(height: int, width: int) -> tuple[int, int]:
+    """(h_pad, w_pad) of the TPU DDD17 kernel's padded grid, which bounds
+    the chunk blocks [r0, r0+16) x [c0, c0+128)."""
+    return (-(-height // TILE_ROWS) * TILE_ROWS,
+            -(-width // TILE_COLS) * TILE_COLS)
+
+
+def voxelize_chunked_bilinear_t_plain(
+    xq, yq, pq, t_rel, counts, tile_r0, t_range,
+    *, num_bins: int, height: int, width: int, separate_pol: bool = True,
+) -> torch.Tensor:
+    """K4's plain PyTorch version: the same dequantization, truncations,
+    block masks and f32 weights as the kernel, accumulated with
+    ``index_put_(accumulate=True)``. Returns ``[NW, Cout, H, W]`` f32."""
+    _check_wire(xq, yq, pq, t_rel, counts, tile_r0, t_range)
+    nw, nbc, e = xq.shape
+    cout = 2 * num_bins if separate_pol else num_bins
+    h_pad, w_pad = padded_grid_bilinear(height, width)
+    r0 = torch.clamp(tile_r0 & 0xFFFF, 0, h_pad - TILE_ROWS)[..., None]
+    c0 = torch.clamp(tile_r0 >> 16, 0, w_pad - TILE_COLS)[..., None]
+    valid = torch.arange(e, device=xq.device) < counts[..., None]
+    x, y, tn, v = _dequant(xq, yq, pq, t_rel, t_range, num_bins)
+    xi, yi, ti = x.int(), y.int(), tn.int()  # trunc toward zero
+    dts = tn - ti.float()
+    ok = (
+        valid & (tn >= 0)
+        & (xi >= c0) & (xi < torch.clamp(c0 + TILE_COLS, max=width))
+        & (yi >= r0) & (yi < torch.clamp(r0 + TILE_ROWS, max=height))
+    )
+    if separate_pol:
+        sign = torch.ones_like(v)
+        ch = torch.where(v > 0, ti, ti + num_bins)
+    else:
+        sign, ch = v, ti
+    win = torch.arange(nw, device=xq.device)[:, None, None]
+    idx = ((win * cout + ch) * height + yi) * width + xi
+    out = torch.zeros(nw * cout * height * width, device=xq.device)
+    for dt, wt in ((0, sign * (1.0 - dts)), (1, sign * dts)):
+        keep = ok & (ti + dt < num_bins)
+        out.index_put_(
+            ((idx + dt * height * width)[keep].long(),), wt[keep],
+            accumulate=True,
+        )
+    return out.view(nw, cout, height, width)
+
+
+def voxelize_chunked_bilinear_t(
+    xq, yq, pq, t_rel, counts, tile_r0, t_range,
+    *, num_bins: int, height: int, width: int, separate_pol: bool = True,
+    normalize: bool = False,
+) -> torch.Tensor:
+    """DDD17 bilinear-in-time voxelization of the chunked wire (K4).
+
+    The wire is K1's (packed with ``integer_coords=True``). Returns
+    ``[NW, Cout, height, width]`` f32 with ``Cout = 2 * num_bins``, positive
+    then negative polarity, when ``separate_pol``, else ``num_bins`` signed;
+    ``normalize`` applies the biased nonzero normalization per window.
+
+    A CUDA wire launches the K4 kernel and counts the launch in
+    ``voxelize_chunked_bilinear_t.launches``; a CPU wire runs
+    :func:`voxelize_chunked_bilinear_t_plain`.
+    """
+    dev = xq.device
+    if dev.type == "cpu":
+        grid = voxelize_chunked_bilinear_t_plain(
+            xq, yq, pq, t_rel, counts, tile_r0, t_range, num_bins=num_bins,
+            height=height, width=width, separate_pol=separate_pol,
+        )
+    elif dev.type == "cuda":
+        nw, nbc, e = xq.shape
+        cout = 2 * num_bins if separate_pol else num_bins
+        h_pad, w_pad = padded_grid_bilinear(height, width)
+        grid = torch.zeros(
+            (nw, cout, height, width), dtype=torch.float32, device=dev
+        )
+        _launch(
+            _kernel("voxelize_chunked_bilinear_t", 10),
+            (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
+            nw, nbc, e, num_bins, int(separate_pol), height, width,
+            h_pad - TILE_ROWS, w_pad - TILE_COLS,
+        )
+        voxelize_chunked_bilinear_t.launches += 1
+    else:
+        raise ValueError(f"unsupported device for K4: {dev}")
+    if normalize:
+        from openess_tpu_torch.ops.voxelize import normalize_nonzero
+
+        grid = torch.stack(
+            [normalize_nonzero(g, unbiased=False) for g in grid])
+    return grid
+
+
+voxelize_chunked_bilinear_t.launches = 0

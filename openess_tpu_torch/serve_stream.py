@@ -4,8 +4,9 @@ The PyTorch/CUDA form of ``tools/serve_stream.py``: carried ConvLSTM state
 and one event window of compute per frame.
 
   host:   pack the window's raw events onto the sorted-chunk wire (numpy)
-  device: voxelize (K1) -> E2VID step (K3 when tpu.e2vid_fused_gates)
-          -> SemSegE2VID head -> argmax -> uint8 labels
+  device: voxelize (K1; K4, resize and crop for DDD17) -> E2VID step (K3
+          when tpu.e2vid_fused_gates) -> SemSegE2VID head -> argmax ->
+          uint8 labels
 
 It reports the achieved serving rate against a target label rate
 (DSEC-Semantic labels arrive at ~20 Hz per camera). Input is a
@@ -81,9 +82,9 @@ def sensor_shape(s, sensor_size: str = "") -> tuple[int, int]:
     if s.dataset_name_b == "DSEC_events":
         return DSEC_HEIGHT, DSEC_WIDTH
     if s.dataset_name_b == "DDD17_events":
-        raise NotImplementedError(
-            "DDD17 serving needs the K4 voxelizer: ROADMAP Queue 1, DDD17"
-        )
+        from openess_tpu_torch.data.ddd17 import HEIGHT, WIDTH
+
+        return HEIGHT, WIDTH
     return tuple(int(v) for v in s.img_size_b)
 
 
@@ -104,6 +105,9 @@ class StreamServer:
         self.device = self.models.device
         self.height, self.width = (int(v) for v in s.img_size_b)
         self.sensor_h, self.sensor_w = sensor_shape(s, sensor_size)
+        # DDD17 events have integer pixels: packed exact, no corner spill
+        self.integer_coords = (not sensor_size
+                               and s.dataset_name_b == "DDD17_events")
         self.pinned_nbc = 0
 
     def initial_state(self):
@@ -124,7 +128,7 @@ class StreamServer:
         va = np.ones((S, x.size), bool)
         wire = chunk_events_batch(
             xs, ys, ps, ts, va, height=self.sensor_h, width=self.sensor_w,
-            t16=self.s.wire_t16,
+            integer_coords=self.integer_coords, t16=self.s.wire_t16,
         )
         self.pinned_nbc = max(self.pinned_nbc, wire[0].shape[1])
         wire = pad_wire_chunks(wire, self.pinned_nbc)

@@ -6,10 +6,12 @@ One function maps (task, config_option) to named modules with roles:
 ================  ==========================================================
 name              role
 ================  ==========================================================
-front_sensor_b    ``e2vid``: the E2VID reconstructor over the T windows
-                  (frozen, latent only; gradients never reach it)
+front_sensor_b    ``e2vid``: the E2VID reconstructor over the T windows,
+                  latent only; frozen (gradients never reach it) except in
+                  a fine-tune with ``unfrozen_e2vid``
 back_end          ``semseg_head``: SemSegE2VID over the E2VID latents,
-                  scoring against the CLIP text embeddings
+                  scoring against the CLIP text embeddings; with the
+                  ``linear_probe`` conv under ``if_linear_probing``
 model_frame /     ``teacher``: the frame teacher (frozen dilated ResNet-50
 model_recon       encoder, trainable ``decoder_conv``), applied to frames
                   (frame2voxel) or reconstructions (recon2voxel)
@@ -21,10 +23,11 @@ with the flax initializers' distributions (truncated-normal LeCun for
 convs, variance-scaled uniform for the transposed convs, zero biases,
 identity BatchNorms); released checkpoints are not loaded yet.
 
-Parameter dtypes: the frozen E2VID is stored in the compute dtype; the
-trainable head and the teacher keep f32 parameters and cast them to the
-compute dtype where they are used (as flax modules do), so the optimizer
-updates f32 weights under a bf16 compute dtype.
+Parameter dtypes: a frozen E2VID is stored in the compute dtype; whatever
+trains (the head, the teacher, E2VID under ``unfrozen_e2vid``) keeps f32
+parameters and casts them to the compute dtype where they are used (as flax
+modules do), so the optimizer updates f32 weights under a bf16 compute
+dtype.
 """
 from __future__ import annotations
 
@@ -123,19 +126,23 @@ class ModelSet:
 
 
 _NOT_PORTED = {
-    "finetune": "ROADMAP Queue 1 item 3 (other workloads on the event path)",
-    "linear_probe": "ROADMAP Queue 1 item 3 (other workloads on the event "
-                    "path)",
     "openess": "ROADMAP Queue 1 item 6 (DeepLabV3 and the frame/recon "
                "workloads)",
 }
 
 
+def e2vid_trains(s: Settings) -> bool:
+    """Whether E2VID's parameters train: only a fine-tune with
+    ``unfrozen_e2vid``."""
+    return bool(s.unfrozen_e2vid and s.if_finetuning)
+
+
 def build_models(s: Settings, seed: int = 0, device=None, *,
                  event_path_only: bool = False) -> ModelSet:
     """The modules of the configured workload on ``device`` (CUDA unless
-    asked otherwise), seeded. Ported: pretrain ``frame2voxel`` /
-    ``recon2voxel`` and ``sup_only`` on the voxel options; anything else
+    asked otherwise), seeded. Ported: pretrain, ``sup_only``, ``finetune``
+    and ``linear_probe`` on the voxel options (``frame2voxel`` /
+    ``recon2voxel``); anything else
     raises ``NotImplementedError`` naming the ROADMAP item that brings it.
     ``event_path_only`` leaves out the teacher (a server needs only
     ``front_sensor_b`` and ``back_end``, which come out the same)."""
@@ -165,8 +172,10 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
         num_bins=s.input_channels_b, normalize=True, planar_input=True,
         latent_only=True, fused_gates=s.e2vid_fused_gates,
     ), "e2vid", "voxel")
-    add("back_end", SemSegE2VID(input_c=256, num_classes=s.semseg_num_classes),
-        "semseg_head", "voxel")
+    add("back_end", SemSegE2VID(
+        input_c=256, num_classes=s.semseg_num_classes,
+        linear_probe=s.if_linear_probing and task != "pretrain",
+    ), "semseg_head", "voxel")
     if task == "pretrain" and not event_path_only:
         name, group = (("model_recon", "recon") if opt == "recon2voxel"
                        else ("model_frame", "frame"))
@@ -179,7 +188,8 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
         init_weights(m, gen)
     modules["back_end"].text_embeddings.copy_(text)
     for name, m in modules.items():
-        if roles[name] == "e2vid":  # frozen: stored in the compute dtype
+        if roles[name] == "e2vid" and not e2vid_trains(s):
+            # frozen: stored in the compute dtype
             m.to(device=dev, dtype=dt, memory_format=torch.channels_last)
         else:
             m.to(device=dev, memory_format=torch.channels_last)
@@ -198,15 +208,21 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
 def trainable_labels(mset: ModelSet, s: Settings) -> dict:
     """``{"<module>.<parameter>": label}`` with the optimizer-group label
     ('recon' / 'frame' / 'voxel') of every parameter, or 'frozen': E2VID
-    always, and the teacher's ``encoder``; the teacher's ``decoder_conv``
-    and the head train in their module's group."""
+    unless it trains (:func:`e2vid_trains`), the teacher's ``encoder``, and
+    under ``if_linear_probing`` everything of the head but ``linear_probe``;
+    the teacher's ``decoder_conv`` and the head train in their module's
+    group. ``frozen_backbone`` freezes the DeepLabV3 student's backbone
+    only, so it changes nothing on the event path."""
     labels = {}
     for name, m in mset.modules.items():
         role, group = mset.roles[name], mset.groups[name]
         for pname, _ in m.named_parameters():
             if role == "e2vid":
-                label = "frozen"
+                label = group if e2vid_trains(s) else "frozen"
             elif role == "teacher" and pname.startswith("encoder"):
+                label = "frozen"
+            elif (role == "semseg_head" and s.if_linear_probing
+                  and "linear_probe" not in pname):
                 label = "frozen"
             else:
                 label = group

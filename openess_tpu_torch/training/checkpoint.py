@@ -79,6 +79,12 @@ def _read(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def read_model_state(path: str) -> dict:
+    """``{module name: state dict}`` of a checkpoint or weights snapshot (a
+    file, or a directory's newest full checkpoint), on the CPU."""
+    return _read(_resolve(path))["models"]
+
+
 def _load_superset(mset, loaded: dict) -> None:
     """Copy ``loaded`` into the modules of ``mset``: extra modules and keys
     in ``loaded`` are ignored; a missing key or a shape mismatch raises."""
@@ -122,14 +128,14 @@ def restore_checkpoint(path: str, mset, optimizer=None, *,
 def load_model_only(path: str, mset) -> None:
     """Load a weights snapshot (or the model part of a full checkpoint)
     into the modules ``mset`` has."""
-    _load_superset(mset, _read(_resolve(path))["models"])
+    _load_superset(mset, read_model_state(path))
 
 
 def load_pretrained_params(path: str, mset, *, exclude_substrings=()) -> list:
     """Shape-filtered partial transfer: a leaf whose name matches an
     exclusion, that the file lacks, or whose shape differs keeps its fresh
     value; everything else loads from ``path``. Returns the names loaded."""
-    loaded = _read(_resolve(path))["models"]
+    loaded = read_model_state(path)
     taken = []
     for name, module in mset.modules.items():
         src = loaded.get(name, {})

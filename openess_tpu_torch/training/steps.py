@@ -3,16 +3,17 @@ counterpart of ``openess_tpu/training/steps.py``.
 
 Batch dict convention (tensors on the device, NHWC except events):
   ev_*        raw-event sorted-chunk wire (data/device_voxelize.py); the
-              step voxelizes it on the device with K1, before augmentation,
-              so paired flips hit the grid
+              step voxelizes it on the device (K1, or K4 for DDD17), before
+              augmentation, so paired flips hit the grid
   event       [B, T, bins, H, W]   voxel windows, planar
   frame/recon [B, H, W, 3]         in [0, 1]
   label/pl/superpixel [B, H, W]    integer
 
 Ported branches of ``compute_losses``: pretrain on the voxel options
 (teacher features, the contrastive loss through K2 on student and teacher
-features, Dice+CE on the pseudo-labels) and ``sup_only`` on the voxel
-options. The loss dicts carry the JAX package's keys.
+features, Dice+CE on the pseudo-labels) and ``finetune`` /
+``linear_probe`` / ``sup_only`` on the voxel options (Dice+CE on the
+labels). The loss dicts carry the JAX package's keys.
 
 The parts of a train step are wrapped in ``record_function`` spans named
 ``train/<part>`` (voxelize, augment, teacher, e2vid, head, losses,
@@ -29,7 +30,12 @@ from openess_tpu_torch.data.augment import augment_batch, draw_decisions
 from openess_tpu_torch.data.device_voxelize import voxelize_wire
 from openess_tpu_torch.losses import nce_loss, task_loss
 from openess_tpu_torch.ops.segment_pool import segment_mean_pool
-from openess_tpu_torch.training.build import VOXEL_OPTIONS, ModelSet
+from openess_tpu_torch.training.build import (
+    VOXEL_OPTIONS,
+    ModelSet,
+    e2vid_trains,
+    trainable_labels,
+)
 from openess_tpu_torch.training.optim import set_learning_rates
 
 
@@ -56,12 +62,20 @@ class StepBuilder:
                 f"config_option {settings.config_option!r}: ROADMAP Queue 1 "
                 "item 6 (DeepLabV3 and the frame/recon workloads)"
             )
-        if mset.task not in ("pretrain", "sup_only"):
+        if mset.task == "openess":
             raise NotImplementedError(
-                f"task {mset.task!r}: ROADMAP Queue 1 items 3 and 6"
+                f"task {mset.task!r}: ROADMAP Queue 1 item 6 (DeepLabV3 and "
+                "the frame/recon workloads)"
             )
         self.s = settings
         self.mset = mset
+        # modules with nothing to train stay in eval mode in a train step
+        labels = trainable_labels(mset, settings)
+        self._trains = {
+            name: any(labels[f"{name}.{p}"] != "frozen"
+                      for p, _ in m.named_parameters())
+            for name, m in mset.modules.items()
+        }
         self.optimizer = optimizer
         self.steps_per_epoch = steps_per_epoch
         self.step = 0
@@ -72,10 +86,10 @@ class StepBuilder:
     # ---------------- forward helpers ----------------
 
     def _set_mode(self, train: bool):
-        # the frozen E2VID and the teacher's encoder have no train-mode
-        # behaviour (no dropout; BatchNorm always on running statistics)
-        for m in self.mset.modules.values():
-            m.train(train)
+        # (the teacher's frozen encoder has no train-mode behaviour: no
+        # dropout, BatchNorm always on running statistics)
+        for name, m in self.mset.modules.items():
+            m.train(train and self._trains[name])
 
     def _windows(self, batch):
         """Voxel windows ``[B, T, bins, H, W]``: the batch's own, or the
@@ -91,13 +105,20 @@ class StepBuilder:
         out["event"] = self._windows(batch)
         return out
 
-    def _event_path(self, batch):
-        """E2VID over the T windows (no gradient) -> detached latent ->
-        SemSegE2VID head. Gradients never reach E2VID through the latent."""
+    def _event_path(self, batch, train: bool = False):
+        """E2VID over the T windows -> latent -> SemSegE2VID head. The
+        latent is detached and E2VID runs without a graph, so gradients
+        never reach E2VID, except in a train step of a fine-tune with
+        ``unfrozen_e2vid``: there the latent stays attached and E2VID's
+        parameters, which are then in the voxel optimizer group, receive
+        gradients through the T windows."""
         windows = self._windows(batch).to(self.mset.dtype)
-        with torch.no_grad(), record_function("train/e2vid"):
+        attached = train and e2vid_trains(self.s)
+        with torch.set_grad_enabled(attached and torch.is_grad_enabled()), \
+                record_function("train/e2vid"):
             _, latent = self.mset.modules["front_sensor_b"](windows)
-        latent = {k: latent[k].detach() for k in ("2", "4", "8")}
+        if not attached:
+            latent = {k: latent[k].detach() for k in ("2", "4", "8")}
         with record_function("train/head"):
             return self.mset.modules["back_end"](latent)  # logits, feat256
 
@@ -121,7 +142,7 @@ class StepBuilder:
             timg = batch["recon" if opt == "recon2voxel" else "frame"]
             with record_function("train/teacher"):
                 feat_teacher = self.mset.modules[tname](timg)
-            logits_voxel, feat_voxel = self._event_path(batch)
+            logits_voxel, feat_voxel = self._event_path(batch, train=True)
             if s.if_spatial_contrastive:
                 with record_function("train/losses"):
                     sp = batch["superpixel"]
@@ -138,8 +159,8 @@ class StepBuilder:
                     loss = self._tloss(logits_voxel, pl) * s.weight_task_loss
                 losses["dense_clip_loss"] = loss
                 total = total + loss
-        else:  # sup_only
-            logits, _ = self._event_path(batch)
+        else:  # finetune | linear_probe | sup_only
+            logits, _ = self._event_path(batch, train=True)
             with record_function("train/losses"):
                 loss = self._tloss(logits, batch["label"]) \
                     * s.weight_task_loss

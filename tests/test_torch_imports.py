@@ -43,7 +43,7 @@ print(len(names))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 30  # every module of both slices
+    assert int(r.stdout.strip()) >= 31  # every module of the three slices
 
 
 def _imported_roots(tree):
@@ -116,11 +116,37 @@ def test_chip_smoke_settings_are_the_flagship_yaml():
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
 
 
+@pytest.mark.parametrize("make,cfg,changed", [
+    ("finetune_settings",
+     "configs/finetunes/DSEC/slic/frame2recon_fcclip_slic_100.yaml",
+     dict(config_option="frame2voxel")),
+    ("ddd17_probe_settings",
+     "configs/linear_probe/DDD17/frame2voxel_fcclip_slic.yaml",
+     dict(if_pretraining=False)),
+])
+def test_chip_smoke_downstream_settings_are_their_yamls(make, cfg, changed):
+    """The fine-tune YAML run on the event path and the DDD17 linear-probe
+    YAML with ``if_pretraining`` off, as chip_smoke.py builds them in
+    code."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from openess_tpu_torch.config.settings import load_settings
+
+    ref = dataclasses.replace(load_settings(os.path.join(ROOT, cfg)),
+                              **changed)
+    got = getattr(chip_smoke, make)()
+    for f in dataclasses.fields(ref):
+        if f.name in ("logger", "semseg_color_map"):
+            continue
+        assert getattr(got, f.name) == getattr(ref, f.name), f.name
+
+
 NEW_MODULES = [
     "losses", "metrics", "train", "test", "data.augment", "data.loaders",
     "data.synthetic", "models.image_teacher", "models.resnet",
     "ops.confusion", "ops.segment_pool", "training.checkpoint",
     "training.optim", "training.steps", "training.trainer",
+    "data.ddd17",  # the third slice: the event half of the DDD17 loader
 ]
 
 
@@ -136,12 +162,21 @@ def test_training_slice_module_is_scanned(name):
 
 def test_kernel_sources_are_in_the_package():
     """Each CUDA kernel's source is a file of the package (built at first
-    use from there), and its wrapper names it."""
+    use from there), and its wrapper names it; K1 and K4 share a source,
+    K3's two Triton kernels live in their wrapper's module."""
     for source, wrapper in (("voxelize_chunked.cu", "ops/voxelize_chunked.py"),
                             ("segment_pool.cu", "ops/segment_pool.py")):
         assert os.path.isfile(os.path.join(PORT, "csrc", source))
         with open(os.path.join(PORT, wrapper)) as f:
             assert f'_build.load("{source}")' in f.read()
+    with open(os.path.join(PORT, "csrc", "voxelize_chunked.cu")) as f:
+        cu = f.read()
+    for entry in ("voxelize_chunked_trilinear", "voxelize_chunked_bilinear_t"):
+        assert f'extern "C" int {entry}(' in cu
+    with open(os.path.join(PORT, "ops", "lstm_gates.py")) as f:
+        k3 = f.read()
+    assert k3.count("@triton.jit") == 2
+    assert "def lstm_gates_fwd(" in k3 and "def lstm_gates_bwd(" in k3
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -1,0 +1,135 @@
+"""K3's backward in the port against the JAX package on the CPU.
+
+The port's plain backward (``fused_lstm_gates_bwd_plain``, what the Triton
+kernel is held against on the card) and autograd through the plain forward
+(what a CPU tensor gets) are compared with ``jax.vjp`` of the Pallas op in
+interpret mode and of the jnp gate path of ``ConvLSTMCell``, on the same
+numpy inputs and cotangents.
+
+Tolerances: f32 within 1e-6 absolute (measured <= 6.1e-7 on gradients up to
+about 5 in size: both sides do the same f32 arithmetic, only the
+sigmoid/tanh implementations differ); bf16 within 2 bf16 ulp of the tensor's
+largest value, ``2 * 2**-8 * max`` (measured: a rare last-bit difference,
+3e-4 of that bound; the f32 results round to bf16 last on both sides).
+Shapes include C that is no power of two and a single row.
+"""
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openess_tpu.ops.lstm_gates import fused_lstm_gates as jfused
+from openess_tpu_torch.ops import lstm_gates as k3
+
+F32_TOL = 1e-6
+SHAPES = [(2, 5, 7, 8), (1, 1, 1, 12), (1, 3, 4, 20), (2, 2, 3, 64)]
+
+
+def _inputs(shape, seed=1205):
+    rng = np.random.default_rng(seed)
+    b, h, w, c = shape
+    return (
+        (rng.normal(size=(b, h, w, 4 * c)) * 2).astype(np.float32),
+        rng.normal(size=(b, h, w, c)).astype(np.float32),
+        rng.normal(size=(b, h, w, c)).astype(np.float32),
+        rng.normal(size=(b, h, w, c)).astype(np.float32),
+    )
+
+
+def _jnp_gates(gates, pc):
+    i, f, o, g = jnp.split(gates, 4, axis=-1)
+    c = jax.nn.sigmoid(f) * pc + jax.nn.sigmoid(i) * jnp.tanh(g)
+    return jax.nn.sigmoid(o) * jnp.tanh(c), c
+
+
+def _jax_vjp(fn, gates, pc, dh, dc, dtype):
+    args = [jnp.asarray(a, dtype) for a in (gates, pc)]
+    _, vjp = jax.vjp(fn, *args)
+    dg, dpc = vjp((jnp.asarray(dh, dtype), jnp.asarray(dc, dtype)))
+    return (np.asarray(dg.astype(jnp.float32)),
+            np.asarray(dpc.astype(jnp.float32)))
+
+
+def _pallas(gates, pc):
+    return jfused(gates, pc, True)  # interpret mode
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_plain_backward_matches_jax_vjp_of_the_pallas_op_f32(shape):
+    gates, pc, dh, dc = _inputs(shape)
+    ref = _jax_vjp(_pallas, gates, pc, dh, dc, jnp.float32)
+    got = k3.fused_lstm_gates_bwd_plain(
+        *(torch.from_numpy(a) for a in (gates, pc, dh, dc)))
+    assert got[0].shape == gates.shape and got[1].shape == pc.shape
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float32
+        assert np.abs(g.numpy() - r).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3], ids=str)
+def test_plain_backward_matches_jax_vjp_of_the_pallas_op_bf16(shape):
+    gates, pc, dh, dc = _inputs(shape, seed=7)
+    ref = _jax_vjp(_pallas, gates, pc, dh, dc, jnp.bfloat16)
+    got = k3.fused_lstm_gates_bwd_plain(
+        *(torch.from_numpy(a).bfloat16() for a in (gates, pc, dh, dc)))
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.bfloat16
+        tol = 2 * 2.0 ** -8 * np.abs(r).max()
+        assert np.abs(g.float().numpy() - r).max() <= tol
+
+
+@pytest.mark.parametrize("shape", SHAPES[:3], ids=str)
+def test_autograd_through_the_plain_forward_matches_both_jax_paths(shape):
+    """What a CPU tensor gets: ``fused_lstm_gates`` is the plain forward,
+    differentiable through autograd."""
+    gates, pc, dh, dc = _inputs(shape, seed=3)
+    tg = torch.from_numpy(gates).requires_grad_(True)
+    tpc = torch.from_numpy(pc).requires_grad_(True)
+    h, c = k3.fused_lstm_gates(tg, tpc)
+    torch.autograd.backward((h, c), (torch.from_numpy(dh),
+                                     torch.from_numpy(dc)))
+    for fn in (_pallas, _jnp_gates):
+        rg, rpc = _jax_vjp(fn, gates, pc, dh, dc, jnp.float32)
+        assert np.abs(tg.grad.numpy() - rg).max() <= F32_TOL
+        assert np.abs(tpc.grad.numpy() - rpc).max() <= F32_TOL
+    # and the plain backward is that gradient
+    pg, ppc = k3.fused_lstm_gates_bwd_plain(
+        tg.detach(), tpc.detach(), torch.from_numpy(dh), torch.from_numpy(dc))
+    assert (pg - tg.grad).abs().max() <= F32_TOL
+    assert (ppc - tpc.grad).abs().max() <= F32_TOL
+
+
+def test_function_backward_densifies_missing_and_strided_gradients():
+    """The ``autograd.Function`` of the CUDA path: a ``None`` gradient (the
+    last window's cell state has no consumer) becomes zeros and a strided
+    one dense before the backward wrapper sees them; on CPU tensors the
+    wrapper is the plain backward."""
+    gates, pc, dh, _ = (torch.from_numpy(a) for a in _inputs((2, 3, 4, 8)))
+    ctx = types.SimpleNamespace(saved_tensors=(gates, pc))
+    strided = dh.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    assert not strided.is_contiguous()
+    got = k3._FusedGates.backward(ctx, strided, None)
+    want = k3.fused_lstm_gates_bwd_plain(gates, pc, dh, torch.zeros_like(pc))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = k3._FusedGates.backward(ctx, None, dh)
+    want = k3.fused_lstm_gates_bwd_plain(gates, pc, torch.zeros_like(pc), dh)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_backward_wrapper_checks_inputs_and_counts_no_cpu_launch():
+    gates, pc, dh, dc = (torch.from_numpy(a) for a in _inputs((1, 2, 2, 4)))
+    before = k3.fused_lstm_gates_bwd.launches
+    dg, dpc = k3.fused_lstm_gates_bwd(gates, pc, dh, dc)
+    assert k3.fused_lstm_gates_bwd.launches == before  # CPU: plain version
+    assert dg.shape == gates.shape and dpc.shape == pc.shape
+    with pytest.raises(ValueError, match="4C"):
+        k3.fused_lstm_gates_bwd(gates[..., :12], pc, dh, dc)
+    with pytest.raises(ValueError, match="prev_cell's shape"):
+        k3.fused_lstm_gates_bwd(gates, pc, dh[:, :1], dc)
+    with pytest.raises(ValueError, match="dtype"):
+        k3.fused_lstm_gates_bwd(gates, pc, dh.bfloat16(), dc)
+    with pytest.raises(ValueError, match="device"):
+        k3.fused_lstm_gates_bwd(*(a.to("meta") for a in (gates, pc, dh, dc)))

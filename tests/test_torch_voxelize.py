@@ -304,13 +304,21 @@ def test_upsample2x_nearest_matches_jax(rng):
 
 
 def test_voxelize_wire_ddd17_is_not_ported_yet(rng):
+    """The DDD17 wire used to raise here; it is voxelized now (K4, resize to
+    352 columns, crop to 200 rows): ``tests/test_torch_voxelize_ddd17.py``
+    holds it against the JAX package. What still raises on DDD17 is reading
+    the dataset from disk."""
     from openess_tpu_torch.config.settings import Settings
     from openess_tpu_torch.data import device_voxelize as tdv
+    from openess_tpu_torch.data.loaders import build_datasets
 
-    s = Settings(dataset_name_b="DDD17_events", img_size_b=(200, 352))
+    s = Settings(dataset_name_b="DDD17_events", img_size_b=(200, 352),
+                 compute_dtype="float32")
     x, y, p, t, valid = _events(rng, 1, 100, 260, 346)
     wire = tvc.chunk_events_batch(x, y, p, t, valid, height=260, width=346,
                                   integer_coords=True)
     batch = tdv.upload_wire(tdv.pack_wire_batch(wire, 1, 1), "cpu")
-    with pytest.raises(NotImplementedError, match="DDD17"):
-        tdv.voxelize_wire(s, batch)
+    got = tdv.voxelize_wire(s, batch)
+    assert got.shape == (1, 1, 5, 200, 352) and got.abs().max() > 0
+    with pytest.raises(NotImplementedError, match="DDD17.*item 8"):
+        build_datasets(s)
