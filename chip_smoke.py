@@ -29,6 +29,17 @@ The downstream stages follow, each through ``Trainer`` as well:
   events, 6 classes, only the head's ``linear_probe`` conv trains), and the
   streaming server on the same settings.
 
+Then the grid wire (``tpu.wire_format: grid``, ``tpu.host_voxelize:
+false``), where the loaders voxelize on the card, K5 for DSEC and K6 for
+DDD17, once per batch:
+
+- the flagship pretrain trainer on one DSEC batch's padded windows, made
+  here (the card machine has no h5py to read a DSEC tree) and turned into
+  the batch by ``data/dsec.event_batch``;
+- the DDD17 linear probe read from a DDD17 tree that this script writes
+  with numpy and PIL: ``build_datasets`` -> ``train_epoch`` ->
+  ``val_epoch``.
+
 The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is.
 
@@ -41,7 +52,9 @@ at NW = 160, training, a training trace, an f32 reference check of the CUDA
 train step against the CPU one, the fine-tune with its trace, an f32
 reference check of a small fine-tune step on CUDA against the CPU, packing
 one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes), the
-DDD17 linear probe, DDD17 serving, and the summary. The kernels' launch counters are zeroed before each main-path run
+DDD17 linear probe, DDD17 serving, K5 vs plain (NW = 160 and edge cases),
+K6 vs plain (NW = 160, both polarity modes, edge cases), the DSEC grid-wire
+trainer, the DDD17 linear probe from disk, and the summary. The kernels' launch counters are zeroed before each main-path run
 and read after it. Any failure raises and the script exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``; before it come a
 ``{"kernels": [...]}`` line and the ``nvidia-smi`` name and power limit.
@@ -79,6 +92,8 @@ K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
                             # 1 - tanh^2, 1 - g^2 cancel, so the error of a
                             # small gradient is set by its factors' size
 K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
+K56_REL_TOL = 1e-5          # K5, K6 vs plain, of max|plain|: atomics order
+GRID_STEPS = 3              # train steps through the grid-wire loaders
 
 
 def flagship_settings(**overrides):
@@ -559,7 +574,8 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
         "K1 once per step": counts["K1"] == TRAIN_STEPS,
         "K3 60 per step": counts["K3"] == 60 * TRAIN_STEPS,
         "K2 twice per step": counts["K2"] == 2 * TRAIN_STEPS,
-        "no K3 backward, no K4": counts["K3_bwd"] == counts["K4"] == 0,
+        "no K3 backward, K4, K5, K6": counts["K3_bwd"] == counts["K4"]
+        == counts["K5"] == counts["K6"] == 0,
         "optimizer steps": sb.step == 1 + 2 * TRAIN_STEPS,
     }
     print("  checks: " + ", ".join(
@@ -1212,13 +1228,532 @@ def ddd17_serving_phase(torch, dev, smi, zero_counts, read_counts):
             for pa, pb in zip(r.carry, want) for a, b in zip(pa, pb)),
         "K4 once per window": got["K4"] == n,
         "K3 three per window": got["K3"] == 3 * n,
-        "no other kernel": got["K1"] == got["K2"] == got["K3_bwd"] == 0,
+        "no other kernel": got["K1"] == got["K2"] == got["K3_bwd"]
+        == got["K5"] == got["K6"] == 0,
     }
     print("  checks: " + ", ".join(
         f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise AssertionError(f"DDD17 serving checks failed: {checks}")
     return got
+
+
+def dsec_windows(s, batch=8, seed=2):
+    """The padded windows of one synthetic DSEC batch on the host, as
+    ``DSECSequence.load_events`` returns them: per sample T windows of K
+    events, rectified fractional coordinates (a few in (-1, 0)), polarity
+    {0, 1}, float64 integer-microsecond times a minute into a recording,
+    sorted, all valid."""
+    rng = np.random.default_rng(seed)
+    T, K = s.nr_events_data_b, s.nr_events_window_b
+    windows = []
+    for b in range(batch):
+        t = 6e7 + b * 1e6 + np.sort(rng.integers(0, 10 ** 6, T * K))
+        windows.append((
+            rng.uniform(-1, 640, (T, K)).astype(np.float32),
+            rng.uniform(-1, 480, (T, K)).astype(np.float32),
+            rng.integers(0, 2, (T, K)).astype(np.float32),
+            t.astype(np.float64).reshape(T, K), np.ones((T, K), bool)))
+    return windows
+
+
+def grid_edge_cases(torch, dev, run, plain, height, width, integer):
+    """A kernel of the grid wire and its plain version on three windows of
+    1000 slots: window 0 holds padding only (exact zeros), window 1 a single
+    event (its weights sum to 1), window 2 events reaching past the frame,
+    fractional negative coordinates (K5) or integer pixels outside the frame
+    (K6). Returns the largest error relative to max|plain|."""
+    rng = np.random.default_rng(5)
+    nw, k, H, W = 3, 1000, height, width
+    if integer:
+        x = rng.integers(-3, W + 3, (nw, k)).astype(np.float32)
+        y = rng.integers(-3, H + 3, (nw, k)).astype(np.float32)
+    else:
+        x = rng.uniform(-0.9, W, (nw, k)).astype(np.float32)
+        y = rng.uniform(-0.9, H, (nw, k)).astype(np.float32)
+        x[2, :300] = rng.uniform(-0.9, -0.1, 300)
+        y[2, 300:600] = rng.uniform(-0.9, -0.1, 300)
+    p = rng.integers(0, 2, (nw, k)).astype(np.float32)
+    t = 6e7 + np.sort(rng.integers(0, 5 * 10 ** 4, (nw, k)), axis=1)
+    valid = np.ones((nw, k), bool)
+    valid[:2] = False
+    valid[1, 7] = True
+    x[1, 7], y[1, 7] = W // 2 + (0 if integer else 0.25), H // 2
+    ev = tuple(torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(dev)
+               for a in (x, y, p, t.astype(np.float32), valid))
+    got, ref = run(ev, nw), plain(ev, nw)
+    torch.cuda.synchronize()
+    per = got.shape[0] // nw
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    checks = {
+        "within the bound": err <= K56_REL_TOL,
+        "padding window exactly zero": not bool(got[:per].any()),
+        "single event weighs 1": abs(abs(got[per:2 * per].sum().item())
+                                     - 1.0) <= 1e-6,
+        "edge window reaches column 0": bool(got[2 * per:, :, 0].any()),
+    }
+    print(f"  edge cases (padding window, one event, "
+          f"{'pixels outside the frame' if integer else 'fractional negative coordinates'}"
+          f"): max|kernel-plain| {err:.3e} of max; " + ", ".join(
+              f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"edge cases failed: {checks}")
+    return err
+
+
+def kernel_alone(torch, k56, name, events, shape, *ints):
+    """A call that zero-fills a grid of ``shape`` and launches the grid
+    wire's kernel ``name`` on ``events`` as its wrapper prepared them: what
+    the kernel's bound counts, without the wrapper's elementwise passes.
+    Timing only; not counted as a launch of the main path."""
+    grid = torch.empty(shape, dtype=torch.float32, device=events[0].device)
+
+    def run():
+        grid.zero_()
+        k56._launch(name, events, grid, *ints)
+    return run
+
+
+def normalize_ms(torch, grid, flush):
+    """Device milliseconds of ``normalize_event``'s unbiased normalization
+    of a K5 batch ``[NW, 5, 480, 640]``, as the DSEC loader runs it (one
+    call over the windows) and as a loop of one call per window."""
+    from openess_tpu_torch.ops.voxelize import normalize_nonzero
+
+    one = cuda_ms(torch, lambda: normalize_nonzero(
+        grid, unbiased=True, dims=(1, 2, 3)), flush, iters=5, warmup=1)
+    loop = cuda_ms(torch, lambda: torch.stack(
+        [normalize_nonzero(w, unbiased=True) for w in grid]), flush,
+        iters=3, warmup=1)
+    print(f"normalize_event on the K5 batch {tuple(grid.shape)}: one call "
+          f"{one:.4f} ms, a call per window {loop:.4f} ms (the shipped "
+          "configs set normalize_event: false, so the main path skips it)")
+    return one, loop
+
+
+def k5_phase(torch, k56, dev, flush, windows):
+    """K5 against its plain version on one DSEC grid-wire batch (NW = 160
+    windows of 100 000 events at 480x640, the times cast to f32 on the host
+    as the loader casts them) and on the edge cases. Returns the row."""
+    from openess_tpu_torch.ops.voxelize import voxelize_windows_trilinear
+
+    phase("K5 voxelize_windows_trilinear_mxu vs plain (NW = 160, 100k "
+          "ev/window, 480x640)")
+    nw = len(windows) * windows[0][0].shape[0]
+    stacked = [np.stack([w[i] for w in windows]) for i in range(5)]
+    stacked[3] = stacked[3].astype(np.float32)  # where the loader casts
+    ev = [torch.from_numpy(a.reshape(-1)).to(dev) for a in stacked]
+    del stacked
+    kw = dict(num_bins=5, height=480, width=640)
+    run_k = lambda: k56.voxelize_windows_trilinear_mxu(*ev, num_windows=nw,
+                                                        **kw)
+    run_p = lambda: voxelize_windows_trilinear(*ev, num_windows=nw, **kw)
+    got, ref = run_k(), run_p()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    ok = err <= K56_REL_TOL * scale
+    del ref
+    ms_n, ms_n_loop = normalize_ms(torch, got.view(nw, 5, 480, 640), flush)
+    del got
+    ms_w = cuda_ms(torch, run_k, flush, iters=10)
+    ms_k = cuda_ms(torch, kernel_alone(
+        torch, k56, "voxelize_windows_trilinear",
+        k56.trilinear_events(*ev, nw, 5), (nw * 5, 480, 640), nw,
+        ev[0].numel() // nw, 5, 480, 640), flush, iters=10)
+    ms_p = cuda_ms(torch, run_p, flush, iters=3, warmup=1)
+    events = int(ev[4].sum())
+    # the kernel reads its 4 prepared f32 arrays (16 B a slot); the wrapper
+    # reads x, y, p, t and the bool valid (17 B a slot); both write the grid
+    grid_bytes = nw * 5 * 480 * 640 * 4
+    nbytes = ev[0].numel() * 16 + grid_bytes
+    b_ms, b_by = bound(nbytes, events * 8 * 6, F32_OPS_PER_S)
+    b_ms_w, _ = bound(ev[0].numel() * 17 + grid_bytes, events * 8 * 6,
+                      F32_OPS_PER_S)
+    print(f"K5 [NW={nw}] max|kernel-plain| {err:.3e} (max|plain| "
+          f"{scale:.3f}, bound {K56_REL_TOL:.0e} x max) "
+          f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} (zero fill and "
+          f"kernel) bound_ms {b_ms:.4f} ({b_by}; {events} events, "
+          f"{nbytes / 1e6:.1f} MB); the wrapper {ms_w:.4f} against "
+          f"{b_ms_w:.4f}; plain_ms {ms_p:.4f}")
+    if not ok:
+        raise AssertionError(f"K5 disagrees with its plain version: {err}")
+    del ev
+    edge = grid_edge_cases(
+        torch, dev,
+        lambda e, n: k56.voxelize_windows_trilinear_mxu(*e, num_windows=n,
+                                                         **kw),
+        lambda e, n: voxelize_windows_trilinear(*e, num_windows=n, **kw),
+        480, 640, integer=False)
+    return dict(
+        name="K5 voxelize_windows_trilinear_mxu (DSEC grid wire)",
+        route="cuda", source="openess_tpu_torch/csrc/voxelize_grid.cu",
+        replaces="openess_tpu/ops/voxelize_mxu.py:54",
+        max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, ms_wrapper=ms_w,
+        bound_ms_wrapper=b_ms_w, normalize_ms=ms_n,
+        normalize_ms_per_window_loop=ms_n_loop, edge_cases_rel_err=edge,
+        check=f"ok: max|kernel-plain| <= {K56_REL_TOL:g} x max|plain| at "
+              "NW = 160 and on the edge cases; ms is the zero fill and the "
+              "kernel on prepared events (16 B a slot in bound_ms), "
+              "ms_wrapper adds the time normalization and the padding "
+              "routing (17 B a slot in bound_ms_wrapper)",
+    )
+
+
+def ddd17_events(rng, nw, k, spill=3):
+    """Integer-pixel DDD17 events, ``spill`` pixels past each edge of the
+    260x346 frame, times relative to each window's first event."""
+    return (rng.integers(-spill, 346 + spill, (nw, k)).astype(np.float32),
+            rng.integers(-spill, 260 + spill, (nw, k)).astype(np.float32),
+            rng.integers(0, 2, (nw, k)).astype(np.float32),
+            np.sort(rng.integers(0, 5 * 10 ** 4, (nw, k)),
+                    axis=1).astype(np.float32),
+            np.ones((nw, k), bool))
+
+
+def k6_phase(torch, k56, dev, flush):
+    """K6 against its plain version at one DDD17 grid-wire batch's shape
+    (NW = 160 windows of 32 000 integer-pixel events at 260x346, some
+    outside the frame), signed and with separate polarities, and on the
+    edge cases. Returns the row (signed: what the linear probe launches)."""
+    from openess_tpu_torch.ops.voxelize import voxel_grid_bilinear_t
+
+    phase("K6 voxelize_windows_bilinear_t_mxu vs plain (NW = 160, 32k "
+          "ev/window, 260x346)")
+    nw, k = 160, 32000
+    ev = [torch.from_numpy(a.reshape(-1)).to(dev)
+          for a in ddd17_events(np.random.default_rng(6), nw, k)]
+    row, worst = {}, 0.0
+    for separate in (False, True):
+        kw = dict(num_bins=5, height=260, width=346, separate_pol=separate)
+        cout = 10 if separate else 5
+        run_k = lambda: k56.voxelize_windows_bilinear_t_mxu(
+            *ev, num_windows=nw, **kw)
+        run_p = lambda: voxel_grid_bilinear_t(
+            *(a.view(nw, k) for a in ev), **kw).view(nw * cout, 260, 346)
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = err <= K56_REL_TOL * scale and scale > 0
+        del got, ref
+        ms_w = cuda_ms(torch, run_k, flush, iters=10)
+        ms_k = cuda_ms(torch, kernel_alone(
+            torch, k56, "voxelize_windows_bilinear_t",
+            k56.bilinear_t_events(*ev, nw, 5, 260, 346),
+            (nw * cout, 260, 346), nw, k, 5, int(separate), 260, 346),
+            flush, iters=10)
+        ms_p = cuda_ms(torch, run_p, flush, iters=3, warmup=1)
+        inb = ((ev[0] >= 0) & (ev[0] < 346) & (ev[1] >= 0) & (ev[1] < 260))
+        events = int(inb.sum())
+        grid_bytes = nw * cout * 260 * 346 * 4
+        nbytes = ev[0].numel() * 16 + grid_bytes
+        b_ms, b_by = bound(nbytes, events * 2 * 8, F32_OPS_PER_S)
+        b_ms_w, _ = bound(ev[0].numel() * 17 + grid_bytes, events * 2 * 8,
+                          F32_OPS_PER_S)
+        tag = "separate" if separate else "signed"
+        print(f"K6 [NW={nw}, {tag} polarity] max|kernel-plain| {err:.3e} "
+              f"(max|plain| {scale:.3f}, bound {K56_REL_TOL:.0e} x max) "
+              f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} (zero fill "
+              f"and kernel) bound_ms {b_ms:.4f} ({b_by}; {events} events in "
+              f"the frame of {ev[0].numel()}, {nbytes / 1e6:.1f} MB); the "
+              f"wrapper {ms_w:.4f} against {b_ms_w:.4f}; plain_ms "
+              f"{ms_p:.4f}")
+        if not ok:
+            raise AssertionError(
+                f"K6 disagrees with its plain version [{tag}]: {err}")
+        worst = max(worst, err)
+        if separate:
+            row.update(ms_separate=ms_k, ms_wrapper_separate=ms_w,
+                       plain_ms_separate=ms_p, bound_ms_separate=b_ms,
+                       bound_ms_wrapper_separate=b_ms_w)
+        else:
+            row.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None, ms_wrapper=ms_w,
+                       bound_ms_wrapper=b_ms_w)
+        edge = grid_edge_cases(
+            torch, dev,
+            lambda e, n: k56.voxelize_windows_bilinear_t_mxu(
+                *e, num_windows=n, **kw),
+            lambda e, n: voxel_grid_bilinear_t(
+                *(a.view(n, -1) for a in e), **kw).reshape(n * cout, 260,
+                                                           346),
+            260, 346, integer=True)
+        row[f"edge_cases_rel_err_{tag}"] = edge
+    return dict(
+        name="K6 voxelize_windows_bilinear_t_mxu (DDD17 grid wire)",
+        route="cuda", source="openess_tpu_torch/csrc/voxelize_grid.cu",
+        replaces="openess_tpu/ops/voxelize_mxu.py:169", max_abs_err=worst,
+        check=f"ok: max|kernel-plain| <= {K56_REL_TOL:g} x max|plain|, "
+              "NW = 160 signed and separate, and the edge cases; ms is the "
+              "zero fill and the signed kernel on prepared events (16 B a "
+              "slot in bound_ms), ms_wrapper adds the time normalization "
+              "and the padding routing (17 B a slot in bound_ms_wrapper)",
+              **row,
+    )
+
+
+class GridWireDataset:
+    """One DSEC batch's side channels and padded windows, made once on the
+    host; ``get_batch`` turns the windows into the batch's event keys
+    through ``data/dsec.event_batch`` (K5 on the card) as
+    ``DSECDataset.get_batch`` does after reading them, and keeps each
+    call's host milliseconds (K5 is queued, not waited for)."""
+
+    def __init__(self, s, side, windows, steps, dev):
+        from openess_tpu_torch.data.dsec import event_batch
+
+        self.s, self.side, self.windows, self.dev = s, side, windows, dev
+        self.event_batch = event_batch
+        self.n = steps * len(windows)
+        self.ms = []
+
+    def __len__(self):
+        return self.n
+
+    def get_batch(self, idx):
+        t0 = time.perf_counter()
+        batch = dict(self.side)
+        batch.update(self.event_batch(self.s, self.windows, self.dev))
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+
+def dsec_grid_phase(torch, dev, smi, windows, zero_counts, read_counts):
+    """The flagship pretrain trainer on the grid wire: ``wire_format:
+    grid``, ``host_voxelize: false``, the batch's windows voxelized by K5
+    inside the loader, ``GRID_STEPS`` steps through ``train_epoch``."""
+    from openess_tpu_torch.training.trainer import Trainer, to_device
+
+    phase("train on the DSEC grid wire: pretrain frame2voxel at full width, "
+          "bf16, K5 in the loader (Trainer)")
+    B = len(windows)
+    s = flagship_settings(e2vid_fused_gates=True, wire_format="grid",
+                          host_voxelize=False, save_checkpoint=False,
+                          batch_size_b=B)
+    T = s.nr_events_data_b
+    H, W = (int(v) for v in s.img_size_b)
+    rng = np.random.default_rng(3)
+    side = {
+        "frame": rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32),
+        "label": rng.integers(0, 11, (B, H, W)).astype(np.int32),
+        "pl": block_labels(rng, B, H, W, 11),
+        "superpixel": block_superpixels(B, H, W),
+        "sam_feat": np.ones((B, 64, 64, 256), np.float32),
+    }
+    print("the padded windows come from this script, not from a DSEC tree: "
+          "reading events.h5 needs h5py, which the card machine lacks "
+          "(PERF.md); they go through data/dsec.event_batch, the part of "
+          "DSECDataset.get_batch after the file reads")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    data = GridWireDataset(s, side, windows, GRID_STEPS, dev)
+    trainer = Trainer(s, data, None, seed=0, device=dev)
+    sb = trainer.sb
+    zero_counts()
+    batch = to_device(data.get_batch(None), dev)
+    ev = batch["event"]
+    first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+    torch.cuda.synchronize()
+    warm = read_counts()
+    print(f"step 0 (warm-up): {first}; the batch's event "
+          f"{tuple(ev.shape)} {ev.dtype} on {ev.device}, launches "
+          + " ".join(f"{k} {v}" for k, v in warm.items()))
+
+    zero_counts()
+    data.ms.clear()
+    t0 = time.perf_counter()
+    avg = trainer.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts()
+    n = GRID_STEPS
+    print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
+          f"({epoch_s * 1e3 / n:.1f} ms per step, host clock); get_batch "
+          f"{np.median(data.ms):.1f} ms per batch on the host (K5 queued) = "
+          f"{sum(data.ms) / (epoch_s * 1e3):.3f} of the epoch; losses "
+          f"{avg}; launches " + " ".join(f"{k} {v}"
+                                         for k, v in counts.items()))
+    hist, events = [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        hist.append(sb.train_step(batch, 0))
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    loader_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        data.get_batch(None)
+        torch.cuda.synchronize()
+        loader_ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step p50 {np.percentile(step_ms, 50):.1f} ms p95 "
+          f"{np.percentile(step_ms, 95):.1f} ms (CUDA events, batch "
+          f"resident); loader {np.median(loader_ms):.1f} ms per batch to the "
+          f"grid on the card (stack, upload, K5; host clock, synchronized); "
+          f"peak memory {peak:.2f} GiB at B={B}; on {smi}")
+    checks = {
+        "every loss finite": all(np.isfinite(v) for v in first.values())
+        and all(np.isfinite(v) for v in avg.values())
+        and all(bool(torch.isfinite(v)) for h in hist for v in h.values()),
+        "event planar [B, T, 5, 440, 640] f32 on the card":
+        tuple(ev.shape) == (B, T, 5, H, W) and ev.dtype == torch.float32
+        and ev.device.type == "cuda",
+        "K5 once per batch": counts["K5"] == n and warm["K5"] == 1,
+        "K1 never": counts["K1"] == warm["K1"] == 0,
+        "K3 60 per step": counts["K3"] == 60 * n,
+        "K2 twice per step": counts["K2"] == 2 * n,
+        "no K3 backward, K4, K6":
+        counts["K3_bwd"] == counts["K4"] == counts["K6"] == 0,
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"DSEC grid-wire checks failed: {checks}")
+    return counts
+
+
+def write_ddd17_tree(root, rng, need, images=5, gap=50_000):
+    """A DDD17 tree (dir0..dir5) in the real dataset's layout, written with
+    numpy and PIL: per recording ``images`` masks (200x346, 6 classes in
+    blocks), frames (200x352), pseudo-labels and SLIC superpixels (25 ids)
+    under their names (dir0 and dir1 name them apart), memmapped events with
+    ``need`` events before the first image and ``gap`` between images, and
+    the 50 ms index map."""
+    from PIL import Image
+
+    for d in range(6):
+        path = os.path.join(root, f"dir{d}")
+        for sub in ("segmentation_masks", "index", "images_aligned",
+                    "pl_fcclip_rgb", "sp_slic_rgb"):
+            os.makedirs(os.path.join(path, sub))
+        n = need + gap * images
+        t = np.sort(rng.integers(0, 10 ** 9, n)).astype(np.int64)
+        xyp = np.stack([rng.integers(0, 346, n), rng.integers(0, 260, n),
+                        rng.integers(0, 2, n)], -1).astype(np.int16)
+        t.reshape(-1, 1).tofile(os.path.join(path, "events.dat.t"))
+        xyp.tofile(os.path.join(path, "events.dat.xyp"))
+        idx = need + gap * np.arange(images)
+        before = np.searchsorted(t, t[idx] - 50_000)
+        np.save(os.path.join(path, "index", "index_50ms.npy"),
+                np.stack([t[idx], idx, before], -1))
+        quirk = d in (0, 1)
+        for i in range(1, images + 1):
+            mask = block_labels(rng, 1, 200, 346, 6)[0].astype(np.uint8)
+            frame = (rng.uniform(0, 255, (200, 352, 3))).astype(np.uint8)
+            sp = block_superpixels(1, 200, 346, 5, 5)[0].astype(np.uint8)
+            stem = f"{i:08d}"
+            Image.fromarray(mask).save(os.path.join(
+                path, "segmentation_masks", f"segmentation_{stem}.png"))
+            Image.fromarray(frame).save(os.path.join(
+                path, "images_aligned",
+                f"img_{stem}.png" if quirk else f"00{stem}.png"))
+            Image.fromarray(mask).save(os.path.join(
+                path, "pl_fcclip_rgb",
+                f"segmentation_{stem}.png" if quirk else f"00{stem}.png"))
+            Image.fromarray(sp).save(os.path.join(
+                path, "sp_slic_rgb", f"img_{stem}_slic_25.png" if quirk
+                else f"00{stem}_slic_25.png"))
+
+
+def ddd17_disk_phase(torch, dev, smi, zero_counts, read_counts):
+    """The DDD17 linear probe read from disk on the grid wire: a tree
+    written here, ``build_datasets`` -> ``Trainer.train_epoch`` ->
+    ``val_epoch``, K6 in the loader."""
+    from openess_tpu_torch.data.loaders import build_datasets
+    from openess_tpu_torch.training.trainer import Trainer, to_device
+
+    phase("linear probe on DDD17 read from disk, grid wire, at full width, "
+          "bf16, K6 in the loader (build_datasets, Trainer)")
+    with tempfile.TemporaryDirectory() as root:
+        s = ddd17_probe_settings(dataset_path_b=root, wire_format="grid",
+                                 host_voxelize=False, e2vid_fused_gates=True,
+                                 save_checkpoint=False)
+        t0 = time.perf_counter()
+        need = s.nr_events_data_b * s.nr_events_window_b
+        write_ddd17_tree(root, np.random.default_rng(4), need=need)
+        print(f"DDD17 tree written in {time.perf_counter() - t0:.1f} s (6 "
+              f"recordings of 5 masks, {need} events before the first)")
+        train, val = build_datasets(s, dev)
+        load_ms = []
+        read = train.get_batch
+
+        def timed(idx):
+            t1 = time.perf_counter()
+            out = read(idx)
+            load_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        train.get_batch = timed
+        torch.cuda.empty_cache()
+        trainer = Trainer(s, train, val, seed=0, device=dev)
+        sb, mset = trainer.sb, trainer.mset
+        n = len(train) // s.batch_size_b
+        zero_counts()
+        batch = to_device(train.get_batch(np.arange(s.batch_size_b)), dev)
+        ev = batch["event"]
+        first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+        torch.cuda.synchronize()
+        print(f"train {len(train)} masks ({n} steps of {s.batch_size_b}), "
+              f"val {len(val)}; step 0 (warm-up): {first}; the batch's "
+              f"event {tuple(ev.shape)} {ev.dtype} on {ev.device}")
+        state0 = {f"{m}.{k}": v.clone()
+                  for m, sd in mset.state_dict().items()
+                  for k, v in sd.items()}
+        zero_counts()
+        load_ms.clear()
+        t0 = time.perf_counter()
+        avg = trainer.train_epoch()
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        counts = read_counts()
+        state1 = {f"{m}.{k}": v for m, sd in mset.state_dict().items()
+                  for k, v in sd.items()}
+        moved = {k for k in state0 if not torch.equal(state0[k], state1[k])}
+        print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
+              f"({epoch_s * 1e3 / n:.1f} ms per step, host clock); get_batch "
+              f"{np.median(load_ms):.1f} ms per batch (host, K6 queued) = "
+              f"{sum(load_ms) / (epoch_s * 1e3):.3f} of the epoch; losses "
+              f"{avg}; launches " + " ".join(f"{k} {v}"
+                                             for k, v in counts.items())
+              + f"; on {smi}")
+        zero_counts()
+        summary = trainer.val_epoch()
+        torch.cuda.synchronize()
+        val_counts = read_counts()
+        print(f"Trainer.val_epoch: mIoU {summary['miou']:.2f} acc "
+              f"{summary['acc']:.2f} over {len(val)} masks in one padded "
+              "batch; launches " + " ".join(f"{k} {v}"
+                                            for k, v in val_counts.items()))
+        checks = {
+            "every loss finite": all(np.isfinite(v) for v in first.values())
+            and all(np.isfinite(v) for v in avg.values()),
+            "event planar [B, T, 5, 200, 352] f32 on the card":
+            tuple(ev.shape) == (s.batch_size_b, s.nr_events_data_b, 5, 200,
+                                352)
+            and ev.dtype == torch.float32 and ev.device.type == "cuda",
+            "only linear_probe.* moved": bool(moved) and all(
+                ".linear_probe." in k for k in moved),
+            "K6 once per batch": counts["K6"] == n and val_counts["K6"] == 1,
+            "K4 never": counts["K4"] == val_counts["K4"] == 0,
+            "K3 60 per batch": counts["K3"] == 60 * n
+            and val_counts["K3"] == 60,
+            "no K1, K2, K3 backward, K5": all(
+                c[k] == 0 for c in (counts, val_counts)
+                for k in ("K1", "K2", "K3_bwd", "K5")),
+            "mIoU in [0, 100]": 0.0 <= summary["miou"] <= 100.0,
+        }
+        print("  checks: " + ", ".join(
+            f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+        if not all(checks.values()):
+            raise AssertionError(f"DDD17 from-disk checks failed: {checks}")
+        del trainer, train, val
+    return {k: counts[k] + val_counts[k] for k in counts}
 
 
 def main():
@@ -1235,6 +1770,7 @@ def main():
     from openess_tpu_torch.ops import lstm_gates as k3
     from openess_tpu_torch.ops import segment_pool as k2
     from openess_tpu_torch.ops import voxelize_chunked as k1
+    from openess_tpu_torch.ops import voxelize_mxu as k56
     from openess_tpu_torch.serve_stream import (
         StreamServer,
         report,
@@ -1260,7 +1796,7 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
-    sources = ("voxelize_chunked.cu", "segment_pool.cu")
+    sources = ("voxelize_chunked.cu", "segment_pool.cu", "voxelize_grid.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         nvcc = [pool.submit(_build.build, src) for src in sources]
         # Triton compiles one kernel per C (16 rows: the row count is
@@ -1275,11 +1811,10 @@ def main():
         t_triton = time.perf_counter() - t0
         lib_paths = [f.result() for f in nvcc]
     t_nvcc = time.perf_counter() - t0
-    k1._kernel()
-    k2._kernel()
-    k1._kernel("voxelize_chunked_bilinear_t", 10)
-    for name, lib_path in zip(("K1 and K4", "K2"), lib_paths):
-        print(f"{name} nvcc build+load (both sources in parallel "
+    for src in sources:
+        _build.load(src)
+    for name, lib_path in zip(("K1 and K4", "K2", "K5 and K6"), lib_paths):
+        print(f"{name} nvcc build+load (the sources in parallel "
               f"{t_nvcc:.1f} s) -> {lib_path}")
         with open(os.path.splitext(lib_path)[0] + ".log") as f:
             for line in f:
@@ -1402,7 +1937,9 @@ def main():
     counters = {"K1": k1.voxelize_chunked_trilinear,
                 "K2": k2.segment_pool_sums, "K3": k3.fused_lstm_gates,
                 "K3_bwd": k3.fused_lstm_gates_bwd,
-                "K4": k1.voxelize_chunked_bilinear_t}
+                "K4": k1.voxelize_chunked_bilinear_t,
+                "K5": k56.voxelize_windows_trilinear_mxu,
+                "K6": k56.voxelize_windows_bilinear_t_mxu}
 
     def zero_counts():
         for fn in counters.values():
@@ -1452,8 +1989,9 @@ def main():
             "carried state shapes": shapes_ok,
             "K1 once per window": n1 == n,
             "K3 three per window": n3 == (3 * n if fused else 0),
-            "K2, K3 backward, K4 not on the DSEC serving path":
-            got["K2"] == got["K3_bwd"] == got["K4"] == 0,
+            "K2, K3 backward, K4, K5, K6 not on the DSEC serving path":
+            got["K2"] == got["K3_bwd"] == got["K4"] == got["K5"]
+            == got["K6"] == 0,
         }
         print("  checks: " + ", ".join(
             f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
@@ -1522,7 +2060,8 @@ def main():
             "(Trainer, from the pretrain checkpoint)",
             finetune_settings(e2vid_fused_gates=True,
                               pretrained_file=ckpt_dir),
-            ft_batch, {"K1": 1, "K3": 60, "K3_bwd": 60, "K2": 0, "K4": 0},
+            ft_batch, {"K1": 1, "K3": 60, "K3_bwd": 60, "K2": 0, "K4": 0,
+                       "K5": 0, "K6": 0},
             lambda k: not k.endswith("text_embeddings"),
             zero_counts, read_counts, loaded=loaded)
         del saved, loaded, ft_batch
@@ -1535,21 +2074,32 @@ def main():
     print(f"numpy packer: {pack_s:.1f} s for {8 * 20} windows (host, "
           f"set-up); wire chunk axis {ddd17_host['ev_x'].shape[2]}")
     kernels["K4"] = k4_phase(torch, k1, dev, flush, ddd17_host)
-    del flush
     launches["probe"] = downstream_phase(
         torch, dev, smi,
         "linear probe: DDD17 at full width, bf16 (Trainer)",
         probe, ddd17_host,
-        {"K4": 1, "K3": 60, "K3_bwd": 0, "K1": 0, "K2": 0},
+        {"K4": 1, "K3": 60, "K3_bwd": 0, "K1": 0, "K2": 0, "K5": 0,
+         "K6": 0},
         lambda k: ".linear_probe." in k, zero_counts, read_counts)
     launches["serving_ddd17"] = ddd17_serving_phase(
         torch, dev, smi, zero_counts, read_counts)
+
+    # the grid wire: K5 and K6 in the loaders, then the trainers on them
+    windows = dsec_windows(flagship_settings())
+    kernels["K5"] = k5_phase(torch, k56, dev, flush, windows)
+    kernels["K6"] = k6_phase(torch, k56, dev, flush)
+    del flush
+    launches["dsec_grid"] = dsec_grid_phase(torch, dev, smi, windows,
+                                            zero_counts, read_counts)
+    del windows
+    launches["ddd17_grid"] = ddd17_disk_phase(torch, dev, smi, zero_counts,
+                                              read_counts)
 
     phase("summary")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     rows = []
-    for key in ("K1", "K3", "K3_bwd", "K2", "K4"):
+    for key in ("K1", "K3", "K3_bwd", "K2", "K4", "K5", "K6"):
         row = kernels[key]
         for path, counts in launches.items():
             row[f"launches_{path}"] = counts[key]

@@ -1,31 +1,81 @@
-"""DDD17-Seg: the event half of ``openess_tpu/data/ddd17.py`` (numpy only).
+"""DDD17-Seg: the counterpart of ``openess_tpu/data/ddd17.py``.
 
-The sensor is 260x346. Voxel grids are bilinearly resized
-(``align_corners=True``) to 260x352 and the bottom 60 rows cropped, giving
-200x352; ``data/device_voxelize.voxelize_wire`` does that on the device
-after the K4 voxelizer. This module holds what turns a sample's raw events
-into the wire: the slice of the memmapped event arrays that belongs to an
-image (:func:`extract_events`), its split into T padded windows
-(:func:`split_event_windows`) and the raw-wire batch assembly
-(:func:`wire_batch`).
+The sensor is 260x346. Events live in memmapped files (``events.dat.t``
+int64 ``[N, 1]``, ``events.dat.xyp`` int16 ``[N, 3]``) with
+``index/index_{10,50,250}ms.npy`` maps from image to event index; the
+labels, frames, pseudo-labels and superpixels are PNGs, and ``PIL`` is
+imported only where one is read. Voxel grids are resized bilinearly
+(``align_corners=True``) to 260x352 and their bottom 60 rows cropped,
+giving 200x352; labels, pseudo-labels and superpixels are resized nearest
+straight to 352x200.
 
-Reading a DDD17 tree from disk (the memmap files, the index maps, labels,
-frames and superpixels through PIL) is not ported yet.
+A sample's events are the slice of the memmaps before its image
+(:func:`extract_events`), split into T padded windows
+(:func:`split_event_windows`). The event keys of a batch
+(:func:`event_batch`), by ``tpu.wire_format``:
+
+- ``raw_events``: the numpy packer's sorted-chunk wire (:func:`wire_batch`),
+  voxelized by K4 inside the train step (``data/device_voxelize.py``);
+- ``grid`` with ``tpu.host_voxelize: false``: ``event``, planar
+  ``[B, T, Cout, 200, 352]`` f32 voxel windows made on the device by K6
+  (:func:`voxelize_grid`);
+- ``grid`` with ``host_voxelize`` and the ``histogram`` representation are
+  built by the JAX package's native host code, which the port does not
+  have yet (ROADMAP Queue 1 item 4): they raise.
 """
 from __future__ import annotations
 
-import numpy as np
+import glob
+import os
+from os.path import basename, dirname, join
 
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import Settings
 from openess_tpu_torch.data.device_voxelize import pack_wire_batch
+from openess_tpu_torch.data.loaders import (
+    EVENT_OPTIONS,
+    SIDE_KEYS,
+    refuse_native_host_code,
+)
+from openess_tpu_torch.data.png import read_png_nearest, read_rgb
+from openess_tpu_torch.ops.voxelize import normalize_nonzero
 from openess_tpu_torch.ops.voxelize_chunked import (
     chunk_events_batch,
     trim_wire_chunks,
 )
+from openess_tpu_torch.ops.voxelize_mxu import voxelize_windows_bilinear_t_mxu
 
 HEIGHT, WIDTH = 260, 346
 RESIZE_W = 352
 CROP_BOTTOM = 60  # -> 200 rows
+
+
+def get_split(dirs, split):
+    """The recording directories of a split: ``train`` takes dir0 and
+    dir2..dir5, ``valid`` dir1."""
+    return {
+        "train": [dirs[0], dirs[2], dirs[3], dirs[4], dirs[5]],
+        "valid": [dirs[1]],
+    }[split]
+
+
+def load_dir(directory: str, t_interval: int):
+    """``(index map, t memmap [N, 1] int64, xyp memmap [N, 3] int16)`` of a
+    recording; the index map is the one of ``t_interval`` ms (10 or 250),
+    else the 50 ms one."""
+    idx_name = {10: "index_10ms.npy", 250: "index_250ms.npy"}.get(
+        t_interval, "index_50ms.npy")
+    img_ts_event_idx = np.load(join(directory, "index", idx_name))
+    t_file = join(directory, "events.dat.t")
+    n = int(os.path.getsize(t_file) / 8)
+    t_events = np.memmap(t_file, dtype="int64", mode="r", shape=(n, 1))
+    xyp = np.memmap(join(directory, "events.dat.xyp"), dtype="int16",
+                    mode="r", shape=(n, 3))
+    return img_ts_event_idx, t_events, xyp
 
 
 def extract_events(t_events, xyp, img_idx, index_map, fixed_duration,
@@ -98,16 +148,6 @@ def wire_batch(s: Settings, windows) -> dict:
     list of :func:`split_event_windows` results): packed at the 260x346
     sensor with integer coordinates, the chunk axis trimmed to the bucketed
     batch maximum."""
-    if s.event_representation_b == "histogram":
-        raise NotImplementedError(
-            "the DDD17 event histogram is built on the host and shipped as "
-            "a grid: ROADMAP Queue 1 item 9 (the grid wire)"
-        )
-    if s.wire_format != "raw_events":
-        raise NotImplementedError(
-            "the DDD17 grid wire (host_voxelize and the K6 device "
-            "voxelizer): ROADMAP Queue 1 item 9"
-        )
     T, B = s.nr_events_data_b, len(windows)
     K = windows[0][0].shape[1]
     stacked = [
@@ -120,3 +160,144 @@ def wire_batch(s: Settings, windows) -> dict:
     )
     return pack_wire_batch(trim_wire_chunks(wire), B, T)
 
+
+def voxelize_grid(s: Settings, x, y, p, t, valid, device) -> torch.Tensor:
+    """The grid wire's voxel windows, made on ``device``: ``[B, T, K]``
+    padded numpy events -> planar ``[B, T, Cout, 200, 352]`` f32.
+
+    K6 voxelizes all B * T windows in one launch at the 260x346 sensor;
+    with ``normalize_event`` each window then gets the biased nonzero
+    normalization; the planar grid is resized to 352 columns (bilinear,
+    ``align_corners=True``) and its bottom 60 rows cropped, in the JAX
+    package's order."""
+    b, n_win, k = x.shape
+    ev = [torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(device)
+          for a in (x, y, p, t, valid)]
+    g = voxelize_windows_bilinear_t_mxu(
+        *ev, num_windows=b * n_win, num_bins=s.nr_temporal_bins_b,
+        height=HEIGHT, width=WIDTH, separate_pol=s.separate_pol_b)
+    g = g.view(b * n_win, -1, HEIGHT, WIDTH)
+    if s.normalize_event_b:
+        g = normalize_nonzero(g, unbiased=False, dims=(1, 2, 3))
+    g = F.interpolate(g, size=(HEIGHT, RESIZE_W), mode="bilinear",
+                      align_corners=True)[:, :, :HEIGHT - CROP_BOTTOM]
+    return g.reshape((b, n_win) + g.shape[1:])
+
+
+def event_batch(s: Settings, windows, device) -> dict:
+    """The event keys of a batch from its samples' windows (a list of
+    :func:`split_event_windows` results)."""
+    refuse_native_host_code(s, "DDD17", "K6")
+    if s.wire_format == "raw_events":
+        return wire_batch(s, windows)
+    stacked = [np.stack([w[i] for w in windows]) for i in range(5)]
+    return {"event": voxelize_grid(s, *stacked, device)}
+
+
+def aligned_path(file_path: str, source: str, img_prefix: str) -> str:
+    """The path of a side channel beside a mask, with the reference's
+    naming quirk: dir0 and dir1 name files ``<prefix><n>.png``, the other
+    recordings ``00<n>.png``."""
+    path = file_path.replace("segmentation_masks", source)
+    a = path.split("segmentation_")
+    d = path.split("/")[-3]
+    if d in ("dir0", "dir1"):
+        path = a[0] + a[1]
+        if img_prefix:
+            path = path.replace(path.split("/")[-1],
+                                img_prefix + path.split("/")[-1])
+    else:
+        path = a[0] + "00" + a[1]
+    return path
+
+
+class DDD17Dataset:
+    """The masks of a split's recordings (``skip_ratio`` subset each) with
+    their memmapped events. ``device`` is where the grid wire is voxelized
+    (CUDA unless given)."""
+
+    def __init__(self, s: Settings, split: str = "train", device=None):
+        self.s = s
+        self.split = split
+        self.device = resolve_device(device)
+        dirs = sorted(glob.glob(join(s.dataset_path_b, "dir*")))
+        if len(dirs) < 6:
+            raise FileNotFoundError(
+                f"DDD17 needs dir0..dir5 under {s.dataset_path_b!r}, found "
+                f"{len(dirs)}")
+        self.dirs = get_split(dirs, split)
+        self.files = []
+        for d in self.dirs:
+            lf = sorted(glob.glob(join(d, "segmentation_masks", "*.png")))
+            if s.skip_ratio != 1:
+                lf = lf[:len(lf) // s.skip_ratio + 1]
+            self.files += lf
+        t_interval = (s.nr_events_data_b * s.delta_t_per_data_b
+                      if s.fixed_duration_b else -1)
+        self.index_maps, self.event_data = {}, {}
+        for d in self.dirs:
+            idx_map, t_ev, xyp = load_dir(d, t_interval)
+            self.index_maps[d] = idx_map
+            self.event_data[d] = (t_ev, xyp)
+
+    def __len__(self):
+        return len(self.files)
+
+    def load_sample(self, idx) -> dict:
+        """The side channels of mask ``idx``: label, pseudo-label and
+        superpixels resized nearest to 352x200; frame or reconstruction as
+        stored."""
+        s = self.s
+        fp = self.files[idx]
+        h_out = HEIGHT - CROP_BOTTOM
+        label = read_png_nearest(fp, RESIZE_W, h_out)
+        out = {"label": label, "file_path": fp}
+        opt = s.config_option
+        if opt in ("frame2voxel", "frame2recon"):
+            out["frame"] = read_rgb(aligned_path(fp, "images_aligned", "img_"))
+        if opt in ("recon2voxel", "frame2recon"):
+            out["recon"] = read_rgb(fp.replace("segmentation_masks",
+                                           "reconstructions"))
+        if self.split == "train" and s.pl_sources:
+            out["pl"] = read_png_nearest(
+                aligned_path(fp, s.pl_sources, "segmentation_"),
+                RESIZE_W, h_out)
+        else:
+            out["pl"] = np.ones_like(label)
+        if len(s.superpixel_sources) > 1:
+            src = ("superpixels_sam" if s.superpixel_sources == "sp_sam_rgb"
+                   else s.superpixel_sources)
+            sp = aligned_path(fp, src, "img_")
+            if s.superpixel_sources == "sp_slic_rgb":
+                sp = sp.replace(".png", "_slic_25.png")
+            out["superpixel"] = read_png_nearest(sp, RESIZE_W, h_out)
+        else:
+            out["superpixel"] = np.ones_like(label)
+        out["sam_feat"] = np.ones((64, 64, 256), np.float32)
+        return out
+
+    def load_events(self, idx):
+        """Padded per-window ``(x, y, p, t, valid)`` of mask ``idx``, each
+        ``[T, K]``: :func:`extract_events` then
+        :func:`split_event_windows`."""
+        s = self.s
+        fp = self.files[idx]
+        d = dirname(dirname(fp))
+        img_idx = int(basename(fp).split("_")[-1].split(".")[0]) - 1
+        t_ev, xyp = self.event_data[d]
+        T, K = s.nr_events_data_b, s.nr_events_window_b
+        events = extract_events(t_ev, xyp, img_idx, self.index_maps[d],
+                                s.fixed_duration_b, T * K)
+        return split_event_windows(events, T, K, s.fixed_duration_b)
+
+    def get_batch(self, indices) -> dict:
+        """Side channels stacked as numpy arrays, and the event keys of
+        :func:`event_batch` (on the grid wire, a tensor on the device)."""
+        needs_events = self.s.config_option in EVENT_OPTIONS
+        samples = [self.load_sample(int(i)) for i in indices]
+        batch = {k: np.stack([sm[k] for sm in samples])
+                 for k in SIDE_KEYS if k in samples[0]}
+        if needs_events:
+            windows = [self.load_events(int(i)) for i in indices]
+            batch.update(event_batch(self.s, windows, self.device))
+        return batch

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -149,4 +150,32 @@ class SyntheticESS:
             height=self.height, width=self.width, t16=t16,
         ))
         batch.update(pack_wire_batch(wire, len(indices), T))
+        return batch
+
+    def voxelized_batch(self, indices, num_bins: int = 5,
+                        device="cpu") -> dict:
+        """Batch on the grid wire: each sample's events voxelized into
+        planar ``[T, bins, H, W]`` f32 windows on ``device`` by the exact
+        scatter (``ops/voxelize.voxelize_windows_trilinear``), stacked into
+        the ``event`` tensor; the side channels stay numpy."""
+        from openess_tpu_torch.ops.voxelize import voxelize_windows_trilinear
+
+        out = {k: [] for k in ("frame", "recon", "label", "pl",
+                               "superpixel", "sam_feat")}
+        grids = []
+        for i in indices:
+            s = self._cache[i]
+            x, y, p, t = (torch.from_numpy(a).to(device)
+                          for a in s["events_xypt"])
+            grid = voxelize_windows_trilinear(
+                x, y, p, t, torch.ones_like(x, dtype=torch.bool),
+                num_windows=self.num_windows, num_bins=num_bins,
+                height=self.height, width=self.width,
+            )
+            grids.append(grid.view(self.num_windows, num_bins, self.height,
+                                   self.width))
+            for k in out:
+                out[k].append(s[k])
+        batch = {k: np.stack(v) for k, v in out.items()}
+        batch["event"] = torch.stack(grids)
         return batch

@@ -2,7 +2,9 @@
 
 Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
-``ctypes``. Libraries go to ``openess_tpu_torch/_build/``, named by a hash
+``ctypes``. Every C entry takes its arguments, then the CUDA stream, and
+returns a ``cudaError_t``; :func:`entry` binds one, :func:`launch` calls it
+on the current stream and raises on an error. Libraries go to ``openess_tpu_torch/_build/``, named by a hash
 of the source and the flags, so an edited source is never served from a
 stale build. The build runs at first use, in the process that launches the
 kernel; nothing is built when a module is imported.
@@ -10,11 +12,14 @@ kernel; nothing is built when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -80,3 +85,22 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build(source))
             _LIBS[source] = lib
         return lib
+
+
+@functools.cache
+def entry(source: str, name: str, *argtypes):
+    """The C entry ``name`` of ``csrc/<source>``'s library, taking
+    ``argtypes`` and then the stream, returning an int error code."""
+    fn = getattr(load(source), name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(fn, device: torch.device, *args):
+    """Call the C entry ``fn`` with ``args`` on the current stream of
+    ``device``; raise on a nonzero ``cudaError_t``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")

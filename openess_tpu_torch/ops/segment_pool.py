@@ -22,7 +22,6 @@ f32.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -51,20 +50,9 @@ def segment_pool_sums_plain(feats: torch.Tensor, ids: torch.Tensor,
     return sums, counts
 
 
-@functools.cache
-def _kernel():
+def _launch(feats: torch.Tensor, ids: torch.Tensor, num_segments: int):
     from openess_tpu_torch.ops import _build
 
-    fn = _build.load("segment_pool.cu").segment_pool_sums
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(feats: torch.Tensor, ids: torch.Tensor, num_segments: int):
     if feats.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"K2 takes bf16 or f32 features, got {feats.dtype}")
     if ids.dtype != torch.int32 or ids.device != feats.device:
@@ -80,16 +68,12 @@ def _launch(feats: torch.Tensor, ids: torch.Tensor, num_segments: int):
     dev = feats.device
     sums = torch.zeros((num_segments, d), dtype=torch.float32, device=dev)
     counts = torch.zeros((num_segments,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _kernel()(
-            feats.data_ptr(), ids.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), n, d, num_segments, RUN,
-            int(feats.dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"K2 segment_pool_sums launch failed: cudaError {err}")
+    fn = _build.entry("segment_pool.cu", "segment_pool_sums",
+                      *[ctypes.c_void_p] * 4, ctypes.c_longlong,
+                      *[ctypes.c_int] * 4)
+    _build.launch(fn, dev, feats.data_ptr(), ids.data_ptr(), sums.data_ptr(),
+                  counts.data_ptr(), n, d, num_segments, RUN,
+                  int(feats.dtype == torch.bfloat16))
     segment_pool_sums.launches += 1
     return sums, counts
 

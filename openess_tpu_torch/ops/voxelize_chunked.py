@@ -28,7 +28,6 @@ from the TPU kernel by the bf16 rounding of the two time weights (about
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -326,34 +325,19 @@ def voxelize_chunked_trilinear_plain(
     return out.view(nw, num_bins, height, width)
 
 
-@functools.cache
-def _kernel(name: str = "voxelize_chunked_trilinear", n_ints: int = 9):
-    """The C entry ``name`` of the built library: 8 device pointers,
-    ``n_ints`` ints, the stream."""
+def _launch(name: str, wire, grid, *ints):
+    """Check the CUDA wire and launch the C entry ``name`` of
+    ``csrc/voxelize_chunked.cu`` on the current stream into the zero-filled
+    ``grid``: 8 device pointers, ``ints`` and the ``t16`` flag."""
     from openess_tpu_torch.ops import _build
 
-    lib = _build.load("voxelize_chunked.cu")
-    fn = getattr(lib, name)
-    fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(fn, wire, grid, *ints):
-    """Check the CUDA wire, launch ``fn`` on the current stream into the
-    zero-filled ``grid`` and raise on a refused launch."""
     _check_wire(*wire)
     if not all(a.is_contiguous() for a in wire):
         raise ValueError("wire tensors must be contiguous")
-    dev = grid.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(a.data_ptr() for a in wire), grid.data_ptr(), *ints,
-                 int(wire[3].dtype == torch.uint16), stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+    fn = _build.entry("voxelize_chunked.cu", name, *[ctypes.c_void_p] * 8,
+                      *[ctypes.c_int] * (len(ints) + 1))
+    _build.launch(fn, grid.device, *(a.data_ptr() for a in wire),
+                  grid.data_ptr(), *ints, int(wire[3].dtype == torch.uint16))
 
 
 def voxelize_chunked_trilinear(
@@ -385,7 +369,8 @@ def voxelize_chunked_trilinear(
             (nw, num_bins, height, width), dtype=torch.float32, device=dev
         )
         _launch(
-            _kernel(), (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
+            "voxelize_chunked_trilinear",
+            (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
             nw, nbc, e, num_bins, height, width,
             h_pad - _ROWS_TRI, w_pad - _COLS_TRI,
         )
@@ -395,7 +380,7 @@ def voxelize_chunked_trilinear(
     if normalize:
         from openess_tpu_torch.ops.voxelize import normalize_nonzero
 
-        grid = torch.stack([normalize_nonzero(g, unbiased=True) for g in grid])
+        grid = normalize_nonzero(grid, unbiased=True, dims=(1, 2, 3))
     return grid
 
 
@@ -483,7 +468,7 @@ def voxelize_chunked_bilinear_t(
             (nw, cout, height, width), dtype=torch.float32, device=dev
         )
         _launch(
-            _kernel("voxelize_chunked_bilinear_t", 10),
+            "voxelize_chunked_bilinear_t",
             (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
             nw, nbc, e, num_bins, int(separate_pol), height, width,
             h_pad - TILE_ROWS, w_pad - TILE_COLS,
@@ -494,8 +479,7 @@ def voxelize_chunked_bilinear_t(
     if normalize:
         from openess_tpu_torch.ops.voxelize import normalize_nonzero
 
-        grid = torch.stack(
-            [normalize_nonzero(g, unbiased=False) for g in grid])
+        grid = normalize_nonzero(grid, unbiased=False, dims=(1, 2, 3))
     return grid
 
 

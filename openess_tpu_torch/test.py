@@ -8,6 +8,7 @@ validation split.
 import argparse
 import logging
 
+from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import load_settings
 from openess_tpu_torch.data.loaders import build_datasets
 from openess_tpu_torch.training.trainer import Trainer
@@ -28,8 +29,9 @@ def main(argv=None):
         settings.resume_training = True
         settings.resume_ckpt_file = args.checkpoint
 
-    _, val_ds = build_datasets(settings)
-    trainer = Trainer(settings, val_ds, val_ds, device=args.device)
+    device = resolve_device(args.device)
+    _, val_ds = build_datasets(settings, device)
+    trainer = Trainer(settings, val_ds, val_ds, device=device)
     summary = trainer.val_epochs()
     print({k: round(float(v), 2) for k, v in summary.items() if k != "cm"})
 

@@ -6,13 +6,17 @@
 Dispatches to the workload encoded in the YAML's ``clip`` section
 (``if_supervised_only`` / ``if_pretraining`` / ...). Runs on the CUDA card
 unless ``--device cpu`` is given. A synthetic dataset
-(``dataset.name_b: synthetic_events``) needs nothing on disk.
+(``dataset.name_b: synthetic_events``) needs nothing on disk; DSEC and DDD17
+are read from ``dataset_path``, on the raw-event wire or, with
+``tpu.wire_format: grid`` and ``tpu.host_voxelize: false``, voxelized on the
+device by the loader (K5, K6). Reading DSEC needs ``h5py``.
 """
 import argparse
 import logging
 
 import numpy as np
 
+from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import load_settings
 from openess_tpu_torch.data.loaders import build_datasets
 from openess_tpu_torch.training.build import task_from_settings
@@ -33,8 +37,9 @@ def main(argv=None):
                              generate_log=not args.no_log_dir)
     np.random.seed(settings.seed)
 
-    train_ds, val_ds = build_datasets(settings)
-    trainer = Trainer(settings, train_ds, val_ds, device=args.device)
+    device = resolve_device(args.device)
+    train_ds, val_ds = build_datasets(settings, device)
+    trainer = Trainer(settings, train_ds, val_ds, device=device)
     if task_from_settings(settings) == "pretrain":
         trainer.pretraining()
     else:

@@ -2,8 +2,10 @@
 counterpart of ``openess_tpu/training/trainer.py``.
 
 One Trainer serves every ported workload; the differences live in
-``StepBuilder.compute_losses``. Batches are assembled in line on the host
-(the prefetching loader and the qualitative dumps are not ported yet).
+``StepBuilder.compute_losses``. Batches are assembled in line: the
+prefetching loader (``PrefetchLoader``, ROADMAP Queue 1 item 8) and the
+qualitative dumps (item 3) are not ported yet. A batch's grid-wire
+``event`` is already on the device and is not copied.
 """
 from __future__ import annotations
 
@@ -46,8 +48,11 @@ def batch_indices(n: int, batch_size: int, *, shuffle: bool, rng,
 
 
 def to_device(batch: dict, device) -> dict:
-    """Host batch (numpy) -> tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    """Batch -> tensors on ``device``: numpy arrays are copied up; a tensor
+    already there (the grid wire's ``event``, made on the device) passes
+    through as it is."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
             for k, v in batch.items()}
 
 

@@ -12,6 +12,11 @@ import torch
 from openess_tpu_torch.ops import lstm_gates as k3
 from openess_tpu_torch.ops import segment_pool as k2
 from openess_tpu_torch.ops import voxelize_chunked as k1
+from openess_tpu_torch.ops import voxelize_mxu as k56
+from openess_tpu_torch.ops.voxelize import (
+    voxel_grid_bilinear_t,
+    voxelize_windows_trilinear,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -147,6 +152,98 @@ def test_k4_kernel_matches_plain(cuda, t16, hw, separate_pol):
     assert got.shape == (3, 10 if separate_pol else 5, H, W)
     assert ref.abs().max() > 0
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _grid_events(rng, nw, k, H, W, case, integer):
+    """Flat padded events for ``nw`` windows: fractional (K5) or integer
+    (K6) coordinates reaching past the frame, 90 % valid; ``case`` adds a
+    window of padding only and one window holding a single event."""
+    if integer:
+        x = rng.integers(-3, W + 3, (nw, k)).astype(np.float32)
+        y = rng.integers(-3, H + 3, (nw, k)).astype(np.float32)
+    else:
+        x = rng.uniform(-1.5, W + 0.5, (nw, k)).astype(np.float32)
+        y = rng.uniform(-1.5, H + 0.5, (nw, k)).astype(np.float32)
+    p = rng.integers(0, 2, (nw, k)).astype(np.float32)
+    t = 1e8 + np.sort(rng.uniform(0, 5e4, (nw, k)), axis=1)
+    valid = rng.random((nw, k)) < 0.9
+    if case == "edges":
+        valid[0] = False
+        valid[1] = False
+        valid[1, 7] = True
+        x[1, 7], y[1, 7] = W // 2 + (0 if integer else 0.25), H // 2
+    return tuple(torch.from_numpy(np.asarray(a, dt).reshape(-1))
+                 for a, dt in ((x, np.float32), (y, np.float32),
+                               (p, np.float32), (t, np.float32),
+                               (valid, bool)))
+
+
+@pytest.mark.parametrize("case", ["dense", "edges"])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 130), (480, 640)])
+def test_k5_kernel_matches_plain(cuda, hw, case):
+    """K5 against the exact scatter on the card: 1e-5 of the grid max
+    (atomics order); a window of padding only stays exactly zero."""
+    H, W = hw
+    nw, k = 3, 5000
+    ev = tuple(a.to(cuda) for a in _grid_events(
+        np.random.default_rng(1205), nw, k, H, W, case, False))
+    kw = dict(num_windows=nw, num_bins=5, height=H, width=W)
+    before = k56.voxelize_windows_trilinear_mxu.launches
+    got = k56.voxelize_windows_trilinear_mxu(*ev, **kw)
+    ref = voxelize_windows_trilinear(*ev, **kw)
+    torch.cuda.synchronize()
+    assert k56.voxelize_windows_trilinear_mxu.launches == before + 1
+    assert got.shape == (nw * 5, H, W) and ref.abs().max() > 0
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if case == "edges":  # the single event's weights sum to 1
+        assert not got[:5].any()
+        assert abs(got[5:10].sum().item()) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("separate_pol", [False, True])
+@pytest.mark.parametrize("case", ["dense", "edges"])
+@pytest.mark.parametrize("hw", [(48, 96), (260, 346)])
+def test_k6_kernel_matches_plain(cuda, hw, case, separate_pol):
+    H, W = hw
+    nw, k = 3, 5000
+    ev = tuple(a.to(cuda) for a in _grid_events(
+        np.random.default_rng(1205), nw, k, H, W, case, True))
+    kw = dict(num_bins=5, height=H, width=W, separate_pol=separate_pol)
+    before = k56.voxelize_windows_bilinear_t_mxu.launches
+    got = k56.voxelize_windows_bilinear_t_mxu(*ev, num_windows=nw, **kw)
+    ref = voxel_grid_bilinear_t(*(a.view(nw, k) for a in ev), **kw)
+    torch.cuda.synchronize()
+    cout = 10 if separate_pol else 5
+    assert k56.voxelize_windows_bilinear_t_mxu.launches == before + 1
+    assert got.shape == (nw * cout, H, W) and ref.abs().max() > 0
+    ref = ref.reshape(got.shape)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if case == "edges":
+        assert not got[:cout].any()
+        assert got[cout:2 * cout].abs().sum().item() == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("dataset", ["DSEC", "DDD17"])
+def test_grid_wire_on_the_card_matches_the_cpu(cuda, dataset):
+    """The datasets' grid voxelizers (K5 or K6, then the crop, and on DDD17
+    the resize) on the card against the CPU's plain path."""
+    from openess_tpu_torch.config.settings import Settings
+    from openess_tpu_torch.data import ddd17, dsec
+
+    rng = np.random.default_rng(3)
+    T, K = 2, 3000
+    if dataset == "DSEC":
+        mod, s, H, W = dsec, Settings(nr_events_data_b=T), 480, 640
+    else:
+        mod, H, W = ddd17, 260, 346
+        s = Settings(dataset_name_b="DDD17_events", nr_events_data_b=T,
+                     separate_pol_b=True, normalize_event_b=True)
+    x, y, p, t, valid = (a.numpy().reshape(2, T, K) for a in _grid_events(
+        rng, 2 * T, K, H, W, "dense", dataset == "DDD17"))
+    out = [mod.voxelize_grid(s, x, y, p, t, valid, dev)
+           for dev in ("cpu", cuda)]
+    assert out[1].device.type == "cuda" and out[0].shape == out[1].shape
+    assert (out[1].cpu() - out[0]).abs().max() <= 1e-5 * out[0].abs().max()
 
 
 def test_k3_kernel_refuses_strided_input(cuda):

@@ -22,11 +22,12 @@ def _port_files():
 
 def test_port_imports_with_jax_blocked():
     """Every module imports with ``jax`` (and the packages the card machine
-    may lack: yaml, PIL, pandas, triton) blocked, and no ``openess_tpu``
-    module gets loaded on the way."""
+    may lack: yaml, PIL, pandas, triton, h5py, hdf5plugin) blocked, and no
+    ``openess_tpu`` module gets loaded on the way."""
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "yaml", "PIL", "pandas", "triton"):
+for name in ("jax", "jaxlib", "flax", "yaml", "PIL", "pandas", "triton",
+             "h5py", "hdf5plugin"):
     sys.modules[name] = None
 import openess_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
@@ -43,7 +44,7 @@ print(len(names))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 31  # every module of the three slices
+    assert int(r.stdout.strip()) >= 41  # every module of the four slices
 
 
 def _imported_roots(tree):
@@ -147,6 +148,9 @@ NEW_MODULES = [
     "ops.confusion", "ops.segment_pool", "training.checkpoint",
     "training.optim", "training.steps", "training.trainer",
     "data.ddd17",  # the third slice: the event half of the DDD17 loader
+    # the fourth slice: the grid wire and the datasets read from disk
+    "data.dsec", "data.event_slicer", "data.png", "ops.voxelize",
+    "ops.voxelize_mxu",
 ]
 
 
@@ -163,15 +167,21 @@ def test_training_slice_module_is_scanned(name):
 def test_kernel_sources_are_in_the_package():
     """Each CUDA kernel's source is a file of the package (built at first
     use from there), and its wrapper names it; K1 and K4 share a source,
-    K3's two Triton kernels live in their wrapper's module."""
+    as K5 and K6 do; K3's two Triton kernels live in their wrapper's
+    module."""
     for source, wrapper in (("voxelize_chunked.cu", "ops/voxelize_chunked.py"),
-                            ("segment_pool.cu", "ops/segment_pool.py")):
+                            ("segment_pool.cu", "ops/segment_pool.py"),
+                            ("voxelize_grid.cu", "ops/voxelize_mxu.py")):
         assert os.path.isfile(os.path.join(PORT, "csrc", source))
         with open(os.path.join(PORT, wrapper)) as f:
-            assert f'_build.load("{source}")' in f.read()
+            assert f'_build.entry("{source}"' in f.read()
     with open(os.path.join(PORT, "csrc", "voxelize_chunked.cu")) as f:
         cu = f.read()
     for entry in ("voxelize_chunked_trilinear", "voxelize_chunked_bilinear_t"):
+        assert f'extern "C" int {entry}(' in cu
+    with open(os.path.join(PORT, "csrc", "voxelize_grid.cu")) as f:
+        cu = f.read()
+    for entry in ("voxelize_windows_trilinear", "voxelize_windows_bilinear_t"):
         assert f'extern "C" int {entry}(' in cu
     with open(os.path.join(PORT, "ops", "lstm_gates.py")) as f:
         k3 = f.read()

@@ -294,6 +294,24 @@ def test_normalize_nonzero_matches_jax(rng, unbiased):
     assert torch.equal(tnorm(zero, unbiased=unbiased), zero)
 
 
+@pytest.mark.parametrize("unbiased", [True, False])
+def test_normalize_nonzero_batched_is_per_window(rng, unbiased):
+    """Over ``dims=(1, 2, 3)`` one call normalizes each window of a batch
+    as JAX's ``normalize_nonzero`` does alone; an all-zero window stays
+    zero beside the others."""
+    from openess_tpu.ops.voxelize import normalize_nonzero as jnorm
+    from openess_tpu_torch.ops.voxelize import normalize_nonzero as tnorm
+
+    g = rng.normal(size=(4, 3, 16, 20)).astype(np.float32)
+    g[rng.random(g.shape) < 0.7] = 0.0
+    g[2] = 0.0
+    got = tnorm(torch.from_numpy(g), unbiased=unbiased,
+                dims=(1, 2, 3)).numpy()
+    ref = np.stack([np.asarray(jnorm(w, unbiased=unbiased)) for w in g])
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    assert not got[2].any()
+
+
 def test_upsample2x_nearest_matches_jax(rng):
     from openess_tpu.ops.resize import upsample2x_nearest as jup
     from openess_tpu_torch.ops.resize import upsample2x_nearest as tup
@@ -306,8 +324,9 @@ def test_upsample2x_nearest_matches_jax(rng):
 def test_voxelize_wire_ddd17_is_not_ported_yet(rng):
     """The DDD17 wire used to raise here; it is voxelized now (K4, resize to
     352 columns, crop to 200 rows): ``tests/test_torch_voxelize_ddd17.py``
-    holds it against the JAX package. What still raises on DDD17 is reading
-    the dataset from disk."""
+    holds it against the JAX package. DDD17 is read from disk now too
+    (``tests/test_torch_datasets.py``); without a tree the factory says
+    where it looked."""
     from openess_tpu_torch.config.settings import Settings
     from openess_tpu_torch.data import device_voxelize as tdv
     from openess_tpu_torch.data.loaders import build_datasets
@@ -320,5 +339,5 @@ def test_voxelize_wire_ddd17_is_not_ported_yet(rng):
     batch = tdv.upload_wire(tdv.pack_wire_batch(wire, 1, 1), "cpu")
     got = tdv.voxelize_wire(s, batch)
     assert got.shape == (1, 1, 5, 200, 352) and got.abs().max() > 0
-    with pytest.raises(NotImplementedError, match="DDD17.*item 8"):
-        build_datasets(s)
+    with pytest.raises(FileNotFoundError, match="DDD17.*dir0"):
+        build_datasets(s, "cpu")

@@ -342,18 +342,22 @@ def test_event_half_of_ddd17_matches_the_jax_dataset(ddd17_tree,
 
 
 def test_unported_ddd17_paths_name_their_roadmap_item():
+    """The DDD17 dataset is read from disk and the grid wire is voxelized
+    on the device now (``tests/test_torch_datasets.py``); what still
+    raises, naming ROADMAP item 4, is the native host code: the histogram
+    and ``host_voxelize``."""
     from openess_tpu_torch.data import ddd17 as tddd
 
     from openess_tpu_torch.data.loaders import build_datasets
 
     _, ts = _ddd17_settings()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_datasets(ts)
+    with pytest.raises(FileNotFoundError, match="dir0"):
+        build_datasets(ts, "cpu")
     _, hist = _ddd17_settings(event_representation_b="histogram")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tddd.wire_batch(hist, [])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tddd.event_batch(hist, [], "cpu")
     _, grid = _ddd17_settings(wire_format="grid")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tddd.wire_batch(grid, [])
+    with pytest.raises(NotImplementedError, match="item 4"):
+        tddd.event_batch(grid, [], "cpu")
     assert (tddd.HEIGHT, tddd.WIDTH, tddd.RESIZE_W, tddd.CROP_BOTTOM) == (
         260, 346, 352, 60)
