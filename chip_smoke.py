@@ -43,9 +43,11 @@ DDD17, once per batch:
 The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is.
 
-Phases: device, build (one nvcc per source, started together, Triton
-beside them), K1 vs plain (NW = 8), K3 vs plain, K3 backward vs plain
-(B = 8, bf16 and f32), K2 vs plain, serving (S=1 with the plain gate path,
+Phases: device, build (one nvcc per source, started together; a kernel that
+spills registers fails the run), K1 vs plain (NW = 8), K3 vs plain and
+PyTorch's fused LSTM cell (B = 1 and 8 at 440x640, B = 8 and 1 at 200x352),
+K3 backward vs plain and the cell's backward (B = 8, bf16 and f32, and with
+a missing gradient), K2 vs plain, serving (S=1 with the plain gate path,
 S=1 with K3, S=8 with K3), a serving trace, an f32 reference check of the
 CUDA server against the CPU server, packing one flagship batch, K1 vs plain
 at NW = 160, training, a training trace, an f32 reference check of the CUDA
@@ -54,13 +56,14 @@ reference check of a small fine-tune step on CUDA against the CPU, packing
 one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes), the
 DDD17 linear probe, DDD17 serving, K5 vs plain (NW = 160 and edge cases),
 K6 vs plain (NW = 160, both polarity modes, edge cases), the DSEC grid-wire
-trainer, the DDD17 linear probe from disk, and the summary. The kernels' launch counters are zeroed before each main-path run
-and read after it. Any failure raises and the script exits non-zero. The
-last line is ``{"ok": true, "device": {...}}``; before it come a
-``{"kernels": [...]}`` line and the ``nvidia-smi`` name and power limit.
+trainer, the DDD17 linear probe from disk, and the summary. The kernels'
+launch counters are zeroed before each main-path run and read after it. Any
+failure raises and the script exits non-zero. The last line is ``{"ok":
+true, "device": {...}}``; before it come a ``{"kernels": [...]}`` line and
+the ``nvidia-smi`` name and power limit.
 
-No JAX and nothing of the JAX package is imported. Needs one CUDA card,
-``nvcc`` (CUDA_HOME or /usr/local/cuda) and ``triton``.
+No JAX and nothing of the JAX package is imported. Needs one CUDA card and
+``nvcc`` (CUDA_HOME or /usr/local/cuda).
 """
 import concurrent.futures
 import dataclasses
@@ -88,7 +91,7 @@ TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
 TRAIN_STEPS = 8             # train steps driven on the flagship batch
 DOWNSTREAM_STEPS = 6        # ... on the fine-tune and linear-probe batches
 K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
-                            # in the last bits between Triton and PyTorch and
+                            # in the last bits between kernel and PyTorch and
                             # 1 - tanh^2, 1 - g^2 cancel, so the error of a
                             # small gradient is set by its factors' size
 K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
@@ -209,6 +212,82 @@ def bound(bytes_moved, ops, ops_per_s):
 
 def phase(name):
     print(f"\n== {name}", flush=True)
+
+
+def ptxas_kernels(lib_path):
+    """``[(kernel, registers, spill bytes stored + loaded)]`` from the
+    ``-Xptxas -v`` log that ``ops/_build`` keeps beside a library; names
+    demangled by ``c++filt`` where the machine has it."""
+    import re
+    import shutil
+
+    with open(os.path.splitext(lib_path)[0] + ".log") as f:
+        log = f.read()
+    rows, name, spills = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), spills])
+            name, spills = None, 0
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True).stdout.split("\n")
+        for r, d in zip(rows, out):
+            d = d.replace("(anonymous namespace)::", "").split("(")[0]
+            r[0] = d.strip() or r[0]
+    for r in rows:  # what c++filt left mangled: the last name of _ZN...E
+        m = re.match(r"_ZN?((?:\d+\w*?)+)E", r[0])
+        parts, rest = [], m.group(1) if m else ""
+        while rest[:1].isdigit():
+            n = re.match(r"\d+", rest).group()
+            parts.append(rest[len(n):len(n) + int(n)])
+            rest = rest[len(n) + int(n):]
+        r[0] = parts[-1] if parts else r[0]
+    return [tuple(r) for r in rows]
+
+
+def k3_library_fwd(torch, gates, pc):
+    """PyTorch's fused LSTM cell on K3's forward inputs, the library
+    yardstick (timed, used nowhere in the port): its gate order is i, f, g,
+    o, its hidden-side gates are zero here, no biases. Returns the call and
+    the ``(h, c)`` it gives, as ``[pixels, C]``."""
+    c = pc.shape[-1]
+    n = pc.numel() // c
+    lg = torch.cat([gates[..., :2 * c], gates[..., 3 * c:],
+                    gates[..., 2 * c:3 * c]], -1).reshape(n, 4 * c)
+    zeros, cx = torch.zeros_like(lg), pc.reshape(n, c)
+    run = lambda: torch.ops.aten._thnn_fused_lstm_cell(lg, zeros, cx)
+    h, cy, _ = run()
+    return run, (h, cy)
+
+
+def k3_library_bwd(torch, gates, pc, dh, dcn):
+    """PyTorch's fused LSTM cell backward on K3's backward inputs (its
+    forward's workspace made first), the library yardstick. Returns the
+    call and ``(dgates, dprev_cell)`` reordered to K3's layout, as
+    ``[pixels, 4C]`` and ``[pixels, C]``."""
+    c = pc.shape[-1]
+    n = pc.numel() // c
+    lg = torch.cat([gates[..., :2 * c], gates[..., 3 * c:],
+                    gates[..., 2 * c:3 * c]], -1).reshape(n, 4 * c)
+    cx = pc.reshape(n, c)
+    _, cy, work = torch.ops.aten._thnn_fused_lstm_cell(
+        lg, torch.zeros_like(lg), cx)
+    del lg
+    gh, gc = dh.reshape(n, c), dcn.reshape(n, c)
+    run = lambda: torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
+        gh, gc, cx, cy, work, False)
+    lgates, lcx, _ = run()
+    lgates = torch.cat([lgates[:, :2 * c], lgates[:, 3 * c:],
+                        lgates[:, 2 * c:3 * c]], -1)
+    return run, (lgates, lcx)
 
 
 def block_superpixels(b, h, w, rows=10, cols=10):
@@ -713,18 +792,38 @@ def k3_fwd_check(torch, k3, gates, pc):
     return err, ulps
 
 
+def k3_bwd_error(torch, got, ref, bf16):
+    """K3's backward against its plain version: ``(max abs error, the error
+    in units of its bound)`` over ``dgates`` and ``dprev_cell``, the bound
+    one bf16 ulp of the larger value plus ``K3_ABS_SLACK`` in bf16 and
+    ``K3_BWD_F32_REL_TOL`` of the plain result's max in f32."""
+    err, ulps = 0.0, 0.0
+    for a, b in zip(got, ref):
+        diff = (a.float() - b.float()).abs()
+        err = max(err, diff.max().item())
+        if bf16:
+            mag = torch.maximum(a.float().abs(), b.float().abs())
+            tol = mag * 2.0 ** -7 + K3_ABS_SLACK
+        else:
+            tol = K3_BWD_F32_REL_TOL * b.abs().max()
+        ulps = max(ulps, (diff / tol).max().item())
+    return err, ulps
+
+
 def k3_b8_phase(torch, k3, dev, flush):
     """K3 at the other shapes the main paths launch it. The forward against
     its plain version at B = 8 on the 440x640 levels (a train step, serving
-    eight streams), with its time and bound, and on the 200x352 levels of
-    DDD17 at B = 8 (the linear probe) and B = 1 (serving); the backward
-    against its plain version in bf16 and f32 at B = 8, with the library's
-    backward beside it. Returns ``(forward numbers, backward row)``."""
+    eight streams) and on the 200x352 levels of DDD17 at B = 8 (the linear
+    probe) and B = 1 (serving), each with its time, the library's and the
+    bound; the backward against its plain version in bf16 and f32 at B = 8,
+    with a missing ``dh`` or ``dc_next`` too, and the library's backward
+    beside it; every time beside its bound. Returns ``(forward numbers,
+    backward row)``."""
     B = 8
     phase("K3 forward vs plain at B = 8 (the train step's shapes, with time "
           "and bound) and at the DDD17 shapes")
     gen = torch.Generator(device=dev).manual_seed(1205)
-    fwd, fwd_err = np.zeros(2), 0.0
+    fwd, fwd_err = {}, 0.0  # (frame, b) -> [kernel, library, bound] sums
     for frame, shapes, batches in (("440x640", K3_SHAPES, (B,)),
                                    ("200x352", K3_DDD17_SHAPES, (B, 1))):
         for b, (h, w, c) in ((b, hwc) for b in batches for hwc in shapes):
@@ -736,19 +835,26 @@ def k3_b8_phase(torch, k3, dev, flush):
             ok = ulps <= 1.0
             ms_k = cuda_ms(torch, lambda: k3.fused_lstm_gates(gates, pc),
                            flush)
+            run_l, _ = k3_library_fwd(torch, gates, pc)
+            ms_l = cuda_ms(torch, run_l, flush)
             nbytes = b * h * w * 7 * c * 2
             b_ms, _ = bound(nbytes, b * h * w * c * 30, F32_OPS_PER_S)
             print(f"K3 fwd [{frame} {b}x{h}x{w}x{c}] max|kernel-plain| "
                   f"{err:.3e} = {ulps:.3f} bf16 ulp (bound 1 ulp + "
                   f"{K3_ABS_SLACK:.0e}) {'OK' if ok else 'FAIL'}; kernel_ms "
-                  f"{ms_k:.4f} bound_ms {b_ms:.4f} ({nbytes / 1e6:.1f} MB)")
+                  f"{ms_k:.4f} library_ms {ms_l:.4f} (_thnn_fused_lstm_cell) "
+                  f"bound_ms {b_ms:.4f} ({nbytes / 1e6:.1f} MB; kernel at "
+                  f"{b_ms / ms_k:.0%} of it, library at {b_ms / ms_l:.0%})")
             if not ok:
                 raise AssertionError(
                     f"K3 disagrees with its plain version: {ulps}")
             fwd_err = max(fwd_err, err)
-            if shapes is K3_SHAPES:
-                fwd += (ms_k, b_ms)
-            del gates, pc
+            fwd.setdefault((frame, b), np.zeros(3))[:] += (ms_k, ms_l, b_ms)
+            del gates, pc, run_l
+    for (frame, b), (ms_k, ms_l, b_ms) in fwd.items():
+        print(f"K3 fwd [{frame}, B = {b}] sum over the three levels: kernel "
+              f"{ms_k:.4f} ms, library {ms_l:.4f}, bound {b_ms:.4f} (kernel "
+              f"at {b_ms / ms_k:.0%} of it)")
 
     phase("K3 fused_lstm_gates backward vs plain (B = 8, 440x640 ConvLSTMs)")
     row, worst = None, 0.0
@@ -767,16 +873,24 @@ def k3_b8_phase(torch, k3, dev, flush):
             run_p = lambda: k3.fused_lstm_gates_bwd_plain(gates, pc, dh, dcn)
             got, ref = run_k(), run_p()
             torch.cuda.synchronize()
-            err, ulps = 0.0, 0.0  # ulps: the error in units of its bound
-            for a, b in zip(got, ref):
-                diff = (a.float() - b.float()).abs()
-                err = max(err, diff.max().item())
-                if bf16:
-                    mag = torch.maximum(a.float().abs(), b.float().abs())
-                    tol = mag * 2.0 ** -7 + K3_ABS_SLACK
-                else:
-                    tol = K3_BWD_F32_REL_TOL * b.abs().max()
-                ulps = max(ulps, (diff / tol).max().item())
+            err, ulps = k3_bwd_error(torch, got, ref, bf16)
+            # a missing gradient (None: the last window's cell state has no
+            # consumer) against the plain version on zeros
+            zero = torch.zeros_like(pc)
+            missing = {}
+            for label, g_h, g_c in (("dc_next=None", dh, None),
+                                    ("dh=None", None, dcn)):
+                e, u = k3_bwd_error(
+                    torch, k3.fused_lstm_gates_bwd(gates, pc, g_h, g_c),
+                    k3.fused_lstm_gates_bwd_plain(
+                        gates, pc, zero if g_h is None else g_h,
+                        zero if g_c is None else g_c), bf16)
+                missing[label] = u
+                err, ulps = max(err, e), max(ulps, u)
+            del zero
+            ms_none = cuda_ms(
+                torch, lambda: k3.fused_lstm_gates_bwd(gates, pc, dh, None),
+                flush)
             ok = ulps <= 1.0
             # library yardstick: the backward of PyTorch's fused LSTM cell
             # on the same data (its gate order is i, f, g, o; timed here,
@@ -784,19 +898,8 @@ def k3_b8_phase(torch, k3, dev, flush):
             n = B * h * w
             ms_l, lib_err = None, None
             try:
-                lg = torch.cat([gates[..., :2 * c], gates[..., 3 * c:],
-                                gates[..., 2 * c:3 * c]], -1).reshape(n, 4 * c)
-                cx = pc.reshape(n, c)
-                _, cy, work = torch.ops.aten._thnn_fused_lstm_cell(
-                    lg, torch.zeros_like(lg), cx)
-                del lg
-                gh, gc = dh.reshape(n, c), dcn.reshape(n, c)
-                run_l = lambda: \
-                    torch.ops.aten._thnn_fused_lstm_cell_backward_impl(
-                        gh, gc, cx, cy, work, False)
-                lgates, lcx, _ = run_l()
-                lgates = torch.cat([lgates[:, :2 * c], lgates[:, 3 * c:],
-                                    lgates[:, 2 * c:3 * c]], -1)
+                run_l, (lgates, lcx) = k3_library_bwd(torch, gates, pc, dh,
+                                                      dcn)
                 lib_err = max(
                     (lgates.float() - ref[0].reshape(n, 4 * c).float())
                     .abs().max().item(),
@@ -804,7 +907,7 @@ def k3_b8_phase(torch, k3, dev, flush):
                     .abs().max().item())
                 del lgates, lcx
                 ms_l = cuda_ms(torch, run_l, flush, iters=10)
-                del cy, work
+                del run_l
             except (RuntimeError, AttributeError, TypeError) as e:
                 lib_ok = False
                 print(f"  library backward not driven on this data: "
@@ -818,16 +921,24 @@ def k3_b8_phase(torch, k3, dev, flush):
                    f"max|lib-plain| {lib_err:.3e})")
             print(f"K3 bwd [{str(dtype).split('.')[-1]} {B}x{h}x{w}x{c}] "
                   f"max|kernel-plain| {err:.3e} = {ulps:.3f} of the bound "
-                  f"({'1 bf16 ulp + 1e-6' if bf16 else '1e-5 x max|plain|'}) "
-                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
-                  f"{ms_p:.4f} library_ms {lib} bound_ms {b_ms:.4f} "
-                  f"({nbytes / 1e6:.1f} MB)")
+                  f"({'1 bf16 ulp + 1e-6' if bf16 else '1e-5 x max|plain|'}; "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in missing.items())
+                  + f") {'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} "
+                  f"(dc_next=None {ms_none:.4f}) plain_ms {ms_p:.4f} "
+                  f"library_ms {lib} bound_ms {b_ms:.4f} "
+                  f"({nbytes / 1e6:.1f} MB; kernel at {b_ms / ms_k:.0%} of "
+                  f"it" + ("" if ms_l is None else
+                           f", library at {b_ms / ms_l:.0%}") + ")")
             if not ok:
                 raise AssertionError(
                     f"K3 backward disagrees with its plain version: {ulps}")
             worst = max(worst, err) if dtype == torch.bfloat16 else worst
             sums += (ms_k, ms_p, ms_l or 0.0, b_ms)
             del gates, pc, dh, dcn, got, ref
+        print(f"K3 bwd [{str(dtype).split('.')[-1]}, B = {B}] sum over the "
+              f"three levels: kernel {sums[0]:.4f} ms, library "
+              f"{f'{sums[2]:.4f}' if lib_ok else 'none'}, bound "
+              f"{sums[3]:.4f} (kernel at {sums[3] / sums[0]:.0%} of it)")
         if dtype == torch.bfloat16:
             row = dict(ms=sums[0], plain_ms=sums[1],
                        library_ms=sums[2] if lib_ok else None,
@@ -837,9 +948,15 @@ def k3_b8_phase(torch, k3, dev, flush):
                        library_ms_f32=sums[2] if lib_ok else None,
                        bound_ms_f32=sums[3])
     k3_cell_trace(torch, dev)
-    return dict(ms_b8=fwd[0], bound_ms_b8=fwd[1], max_abs_err=fwd_err), dict(
+    dsec, ddd17, ddd17_1 = (fwd[k] for k in (("440x640", B), ("200x352", B),
+                                              ("200x352", 1)))
+    return dict(ms_b8=dsec[0], library_ms_b8=dsec[1], bound_ms_b8=dsec[2],
+                ms_ddd17=ddd17[0], library_ms_ddd17=ddd17[1],
+                bound_ms_ddd17=ddd17[2], ms_ddd17_b1=ddd17_1[0],
+                library_ms_ddd17_b1=ddd17_1[1], bound_ms_ddd17_b1=ddd17_1[2],
+                max_abs_err=fwd_err), dict(
         name="K3 fused_lstm_gates backward (3 ConvLSTMs per window, B = 8)",
-        route="triton", source="openess_tpu_torch/ops/lstm_gates.py",
+        route="cuda", source="openess_tpu_torch/csrc/lstm_gates.cu",
         replaces="openess_tpu/ops/lstm_gates.py:88", max_abs_err=worst,
         check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6 (f32: 1e-5 x max|plain|"
               "), 3 shapes at B = 8; ms is the bf16 sum over the three",
@@ -1796,32 +1913,24 @@ def main():
 
     phase("build")
     t0 = time.perf_counter()
-    sources = ("voxelize_chunked.cu", "segment_pool.cu", "voxelize_grid.cu")
+    sources = ("voxelize_chunked.cu", "segment_pool.cu", "voxelize_grid.cu",
+               "lstm_gates.cu")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        nvcc = [pool.submit(_build.build, src) for src in sources]
-        # Triton compiles one kernel per C (16 rows: the row count is
-        # specialized on divisibility by 16, as at the real shapes)
-        for h, w, c in K3_SHAPES:
-            g = torch.zeros((1, 1, 16, 4 * c), dtype=torch.bfloat16,
-                            device=dev)
-            z = torch.zeros_like(g[..., :c])
-            k3.fused_lstm_gates(g, z)
-            k3.fused_lstm_gates_bwd(g, z, z, z)
-        torch.cuda.synchronize()
-        t_triton = time.perf_counter() - t0
-        lib_paths = [f.result() for f in nvcc]
+        lib_paths = list(pool.map(_build.build, sources))
     t_nvcc = time.perf_counter() - t0
     for src in sources:
         _build.load(src)
-    for name, lib_path in zip(("K1 and K4", "K2", "K5 and K6"), lib_paths):
+    spilled = []
+    for name, lib_path in zip(("K1 and K4", "K2", "K5 and K6",
+                               "K3 forward and backward"), lib_paths):
         print(f"{name} nvcc build+load (the sources in parallel "
               f"{t_nvcc:.1f} s) -> {lib_path}")
-        with open(os.path.splitext(lib_path)[0] + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print("  ptxas:", line.strip())
-    print(f"K3 triton compile (forward and backward, 3 specializations "
-          f"each) {t_triton:.1f} s")
+        for kernel, regs, spills in ptxas_kernels(lib_path):
+            print(f"  ptxas: {kernel}: {regs} registers, {spills} bytes "
+                  "spilled")
+            spilled += [kernel] if spills else []
+    if spilled:
+        raise AssertionError(f"kernels spill registers: {spilled}")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernels = {}
@@ -1889,15 +1998,8 @@ def main():
         ok = ulps <= 1.0
         run_k = lambda: k3.fused_lstm_gates(gates, pc)
         run_p = lambda: k3.fused_lstm_gates_plain(gates, pc)
-        # library yardstick: PyTorch's fused LSTM cell on the same gates
-        # (its order is i, f, g, o; zero hidden-side gates, no biases)
         n = h * w
-        lg = torch.cat([gates[..., :2 * c], gates[..., 3 * c:],
-                        gates[..., 2 * c:3 * c]], -1).reshape(n, 4 * c)
-        zeros = torch.zeros_like(lg)
-        cx = pc.reshape(n, c)
-        run_l = lambda: torch.ops.aten._thnn_fused_lstm_cell(lg, zeros, cx)
-        hl, cl, _ = run_l()
+        run_l, (hl, cl) = k3_library_fwd(torch, gates, pc)
         lib_err = max((hl - hp.reshape(n, c)).abs().max().item(),
                       (cl - cp.reshape(n, c)).abs().max().item())
         ms_k = cuda_ms(torch, run_k, flush)
@@ -1910,14 +2012,14 @@ def main():
               f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
               f"{ms_p:.4f} library_ms {ms_l:.4f} (_thnn_fused_lstm_cell, "
               f"max|lib-plain| {lib_err:.3e}) bound_ms {b_ms:.4f} "
-              f"({nbytes / 1e6:.1f} MB)")
+              f"({nbytes / 1e6:.1f} MB; kernel at {b_ms / ms_k:.0%} of it)")
         if not ok:
             raise AssertionError(f"K3 disagrees with its plain version: {ulps}")
         k3_err = max(k3_err, err)
         sums += (ms_k, ms_p, ms_l, b_ms)
     kernels["K3"] = dict(
         name="K3 fused_lstm_gates forward (3 ConvLSTMs per window)",
-        route="triton", source="openess_tpu_torch/ops/lstm_gates.py",
+        route="cuda", source="openess_tpu_torch/csrc/lstm_gates.cu",
         replaces="openess_tpu/ops/lstm_gates.py:75",
         max_abs_err=k3_err, ms=sums[0], plain_ms=sums[1], bound_ms=sums[3],
         bound_by="bytes", library_ms=sums[2],

@@ -2,8 +2,8 @@
 
 The JAX package stays the reference; this package computes the same
 functions with PyTorch, and every TPU (Pallas) kernel on a ported path is a
-kernel written by hand for Hopper (``sm_90a``): CUDA C++ under ``csrc/``
-built with ``nvcc`` at first use, or Triton. Each kernel wrapper keeps a
+kernel written by hand for Hopper (``sm_90a``): CUDA C++ under ``csrc/``,
+built with ``nvcc`` at first use. Each kernel wrapper keeps a
 plain PyTorch version beside it, which it takes only for tensors on the CPU.
 
 Ported so far: the streaming segmentation server (``serve_stream``):

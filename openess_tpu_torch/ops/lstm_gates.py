@@ -1,24 +1,16 @@
-"""K3: the fused ConvLSTM gate pointwise tail and its backward, as two
-Triton kernels.
+"""K3: the fused ConvLSTM gate pointwise tail and its backward, two CUDA C++
+kernels in ``csrc/lstm_gates.cu``.
 
 They replace the TPU kernels ``openess_tpu/ops/lstm_gates.py:_fwd_kernel``
 and ``_bwd_kernel`` (reached through ``_run`` from ``fused_lstm_gates`` and
-its custom VJP). From the gate conv
-output ``[..., 4C]`` in the reference chunk order (i, f, o, g) and the
-previous cell ``[..., C]``::
+its custom VJP). From the gate conv output ``[..., 4C]`` in the reference
+chunk order (i, f, o, g) and the previous cell ``[..., C]``::
 
     i, f, o = sigmoid(.), g = tanh(.)
     c = f * c_prev + i * g
     h = o * tanh(c)
 
 in f32, with ``h`` and ``c`` stored in the input dtype.
-
-What bounds it on an H100: it reads 5C and writes 2C values per pixel with
-no reuse, so it is a pure HBM stream (at 440x640, bf16: 63 / 31.5 / 15.8 MB
-for C = 64 / 128 / 256). The design is the plain one for such a pass: the
-NHWC tensors are viewed as ``[rows, 4C]`` / ``[rows, C]`` rows, one program
-per block of rows with a power-of-two channel block and masked edges, the
-four gate slices of a row read as contiguous runs.
 
 The backward (only a trainable E2VID, the ``unfrozen_e2vid`` fine-tune,
 reaches it) saves nothing but the forward's two inputs. From them and the
@@ -29,17 +21,19 @@ in f32 with the forward's own formulas and gives::
     dgates  = (dc*g*i(1-i), dc*c_prev*f(1-f), dh*tanh(c)*o(1-o), dc*i*(1-g^2))
     dc_prev = dc * f
 
-in the input dtype. It reads 7C and writes 5C values per pixel, again a pure
-HBM stream (at 440x640, B = 8, bf16: 865 / 432 / 216 MB), and has the
-forward's shape: ``[rows, 4C]`` / ``[rows, C]`` rows, one program per block
-of rows, the four gate runs of a row read and written contiguously.
+in the input dtype; a ``None`` ``dh`` or ``dc_next`` counts as zero. Both
+are HBM streams; the source's note says how the kernels meet that. The
+wrappers here choose each launch (:func:`launch_plan`), count it, and run
+the plain versions for CPU tensors only.
 """
-import functools
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
-_BLOCK_ELEMS = 4096  # rows x channels per program
-tl = None  # triton.language, bound by _triton_kernel at first launch
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_lstm_gates_plain(gates: torch.Tensor, prev_cell: torch.Tensor):
@@ -59,18 +53,20 @@ def fused_lstm_gates_plain(gates: torch.Tensor, prev_cell: torch.Tensor):
 
 def fused_lstm_gates_bwd_plain(gates, prev_cell, dh, dc_next):
     """The backward's plain PyTorch version: ``(dgates, dprev_cell)`` with
-    the same f32 math, outputs in the input dtype."""
+    the same f32 math, outputs in the input dtype; ``None`` for ``dh`` or
+    ``dc_next`` counts as zero."""
     C = prev_cell.shape[-1]
     g4 = gates.float()
     pc = prev_cell.float()
-    dh = dh.float()
+    dh = 0.0 if dh is None else dh.float()
+    dcn = 0.0 if dc_next is None else dc_next.float()
     i = torch.sigmoid(g4[..., :C])
     f = torch.sigmoid(g4[..., C:2 * C])
     o = torch.sigmoid(g4[..., 2 * C:3 * C])
     g = torch.tanh(g4[..., 3 * C:])
     c = f * pc + i * g
     th = torch.tanh(c)
-    dc = dc_next.float() + dh * o * (1.0 - th * th)
+    dc = dcn + dh * o * (1.0 - th * th)
     dgates = torch.cat([
         (dc * g) * i * (1.0 - i),
         (dc * pc) * f * (1.0 - f),
@@ -80,85 +76,49 @@ def fused_lstm_gates_bwd_plain(gates, prev_cell, dh, dc_next):
     return dgates.to(gates.dtype), (dc * f).to(gates.dtype)
 
 
-@functools.cache
-def _triton_kernel():
-    """Compile-on-first-use Triton kernel (``triton`` is imported here, not
-    when the module is imported)."""
-    global tl
-    import triton
-    import triton.language as tl
+class LaunchPlan(NamedTuple):
+    vec: int      # channels per work item: 16 bytes' worth, or 1 (scalar)
+    n_items: int  # pixels x C / vec, one a thread
 
-    @triton.jit
-    def lstm_gates_fwd(g_ptr, pc_ptr, h_ptr, c_ptr, n_rows,
-                       C: tl.constexpr, BLOCK_R: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        mask = (rows[:, None] < n_rows) & (cols[None, :] < C)
-        r = rows[:, None].to(tl.int64)
-        g_off = r * (4 * C) + cols[None, :]
-        s_off = r * C + cols[None, :]
-        gi = tl.load(g_ptr + g_off, mask=mask, other=0.0).to(tl.float32)
-        gf = tl.load(g_ptr + g_off + C, mask=mask, other=0.0).to(tl.float32)
-        go = tl.load(g_ptr + g_off + 2 * C, mask=mask, other=0.0).to(tl.float32)
-        gg = tl.load(g_ptr + g_off + 3 * C, mask=mask, other=0.0).to(tl.float32)
-        pc = tl.load(pc_ptr + s_off, mask=mask, other=0.0).to(tl.float32)
-        i = 1.0 / (1.0 + tl.exp(-gi))
-        f = 1.0 / (1.0 + tl.exp(-gf))
-        o = 1.0 / (1.0 + tl.exp(-go))
-        # tanh(x) = sign(x) (1 - e^{-2|x|}) / (1 + e^{-2|x|})
-        eg = tl.exp(-2.0 * tl.abs(gg))
-        g = (1.0 - eg) / (1.0 + eg)
-        g = tl.where(gg < 0, -g, g)
-        c = f * pc + i * g
-        ec = tl.exp(-2.0 * tl.abs(c))
-        th = (1.0 - ec) / (1.0 + ec)
-        th = tl.where(c < 0, -th, th)
-        h = o * th
-        tl.store(c_ptr + s_off, c.to(c_ptr.dtype.element_ty), mask=mask)
-        tl.store(h_ptr + s_off, h.to(h_ptr.dtype.element_ty), mask=mask)
+    @property
+    def scalar(self) -> bool:
+        return self.vec == 1
 
-    @triton.jit
-    def lstm_gates_bwd(g_ptr, pc_ptr, dh_ptr, dcn_ptr, dg_ptr, dpc_ptr,
-                       n_rows, C: tl.constexpr, BLOCK_R: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0) * BLOCK_R + tl.arange(0, BLOCK_R)
-        cols = tl.arange(0, BLOCK_C)
-        mask = (rows[:, None] < n_rows) & (cols[None, :] < C)
-        r = rows[:, None].to(tl.int64)
-        g_off = r * (4 * C) + cols[None, :]
-        s_off = r * C + cols[None, :]
-        gi = tl.load(g_ptr + g_off, mask=mask, other=0.0).to(tl.float32)
-        gf = tl.load(g_ptr + g_off + C, mask=mask, other=0.0).to(tl.float32)
-        go = tl.load(g_ptr + g_off + 2 * C, mask=mask, other=0.0).to(tl.float32)
-        gg = tl.load(g_ptr + g_off + 3 * C, mask=mask, other=0.0).to(tl.float32)
-        pc = tl.load(pc_ptr + s_off, mask=mask, other=0.0).to(tl.float32)
-        dh = tl.load(dh_ptr + s_off, mask=mask, other=0.0).to(tl.float32)
-        dcn = tl.load(dcn_ptr + s_off, mask=mask, other=0.0).to(tl.float32)
-        # the forward's formulas, so both agree on c and tanh(c)
-        i = 1.0 / (1.0 + tl.exp(-gi))
-        f = 1.0 / (1.0 + tl.exp(-gf))
-        o = 1.0 / (1.0 + tl.exp(-go))
-        eg = tl.exp(-2.0 * tl.abs(gg))
-        g = (1.0 - eg) / (1.0 + eg)
-        g = tl.where(gg < 0, -g, g)
-        c = f * pc + i * g
-        ec = tl.exp(-2.0 * tl.abs(c))
-        th = (1.0 - ec) / (1.0 + ec)
-        th = tl.where(c < 0, -th, th)
-        dc = dcn + dh * o * (1.0 - th * th)
-        dgi = (dc * g) * i * (1.0 - i)
-        dgf = (dc * pc) * f * (1.0 - f)
-        dgo = (dh * th) * o * (1.0 - o)
-        dgg = (dc * i) * (1.0 - g * g)
-        dt = dg_ptr.dtype.element_ty
-        tl.store(dg_ptr + g_off, dgi.to(dt), mask=mask)
-        tl.store(dg_ptr + g_off + C, dgf.to(dt), mask=mask)
-        tl.store(dg_ptr + g_off + 2 * C, dgo.to(dt), mask=mask)
-        tl.store(dg_ptr + g_off + 3 * C, dgg.to(dt), mask=mask)
-        tl.store(dpc_ptr + s_off, (dc * f).to(dt), mask=mask)
 
-    return triton, lstm_gates_fwd, lstm_gates_bwd
+def launch_plan(C: int, dtype: torch.dtype, n_pixels: int, *,
+                aligned: bool = True) -> LaunchPlan:
+    """How the kernels of ``csrc/lstm_gates.cu`` cover ``n_pixels`` rows of
+    ``C`` channels: the vector instantiation (16 bytes a work item) when
+    ``C`` is a multiple of its width and every tensor is 16-byte
+    ``aligned``, else the scalar one. Raises for a dtype the kernels do not
+    take or a launch too large for their 32-bit item index."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"K3 kernels take float32 or bfloat16, not {dtype}")
+    vec = 16 // dtype.itemsize
+    if C % vec or not aligned:
+        vec = 1
+    n_items = n_pixels * C // vec
+    if n_items >= 2 ** 31:
+        raise ValueError(f"{n_pixels} x {C} values exceed the K3 kernels' "
+                         "32-bit item index")
+    return LaunchPlan(vec, n_items)
+
+
+def _launch(name: str, prev_cell, *tensors):
+    """Launch the C entry ``name`` of ``csrc/lstm_gates.cu`` over
+    ``tensors`` (``None`` passes a null pointer) on the current stream."""
+    from openess_tpu_torch.ops import _build
+
+    C = prev_cell.shape[-1]
+    plan = launch_plan(
+        C, prev_cell.dtype, prev_cell.numel() // C,
+        aligned=all(t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+    fn = _build.entry("lstm_gates.cu", name,
+                      *[ctypes.c_void_p] * len(tensors), ctypes.c_uint,
+                      *[ctypes.c_int] * 3)
+    _build.launch(fn, prev_cell.device,
+                  *(None if t is None else t.data_ptr() for t in tensors),
+                  plan.n_items, C, _DTYPE_CODES[prev_cell.dtype], plan.vec)
 
 
 def _check(gates, prev_cell, *grads):
@@ -168,7 +128,8 @@ def _check(gates, prev_cell, *grads):
             f"gates {tuple(gates.shape)} must be [..., 4C] over prev_cell "
             f"{tuple(prev_cell.shape)}"
         )
-    for t in (prev_cell, *grads):
+    given = [t for t in (prev_cell, *grads) if t is not None]
+    for t in given:
         if t.dtype != gates.dtype or t.device != gates.device:
             raise ValueError("K3 tensors must share dtype and device")
         if t.shape != prev_cell.shape:
@@ -178,30 +139,18 @@ def _check(gates, prev_cell, *grads):
             )
     if gates.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device for K3: {gates.device}")
-    if gates.device.type == "cuda" and not all(
-        t.is_contiguous() for t in (gates, prev_cell, *grads)
-    ):
-        raise ValueError("K3 inputs must be contiguous (NHWC)")
-
-
-def _grid(triton, prev_cell):
-    C = prev_cell.shape[-1]
-    n_rows = prev_cell.numel() // C
-    block_c = triton.next_power_of_2(C)
-    block_r = max(1, _BLOCK_ELEMS // block_c)
-    return n_rows, block_r, block_c
+    if gates.device.type == "cuda":
+        if gates.dtype not in _DTYPE_CODES:
+            raise ValueError(
+                f"K3 kernels take float32 or bfloat16, not {gates.dtype}")
+        if not all(t.is_contiguous() for t in (gates, *given)):
+            raise ValueError("K3 inputs must be contiguous (NHWC)")
 
 
 def _launch_fwd(gates, prev_cell):
-    triton, fwd, _ = _triton_kernel()
     h = torch.empty_like(prev_cell)
     c = torch.empty_like(prev_cell)
-    n_rows, block_r, block_c = _grid(triton, prev_cell)
-    with torch.cuda.device(gates.device):
-        fwd[(triton.cdiv(n_rows, block_r),)](
-            gates, prev_cell, h, c, n_rows, C=prev_cell.shape[-1],
-            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=4,
-        )
+    _launch("lstm_gates_forward", prev_cell, gates, prev_cell, h, c)
     fused_lstm_gates.launches += 1
     return h, c
 
@@ -209,25 +158,20 @@ def _launch_fwd(gates, prev_cell):
 def fused_lstm_gates_bwd(gates, prev_cell, dh, dc_next):
     """``(dgates [..., 4C], dprev_cell [..., C])`` of :func:`fused_lstm_gates`
     from its two inputs and the gradients of ``hidden`` and ``cell`` (all one
-    dtype; on CUDA all contiguous).
+    dtype; on CUDA all contiguous). Either gradient may be ``None``, read as
+    zero.
 
-    A CUDA input launches the K3 backward Triton kernel and counts the
-    launch in ``fused_lstm_gates_bwd.launches``; a CPU input runs
+    A CUDA input launches the K3 backward kernel (bf16 or f32) and counts
+    the launch in ``fused_lstm_gates_bwd.launches``; a CPU input runs
     :func:`fused_lstm_gates_bwd_plain`.
     """
     _check(gates, prev_cell, dh, dc_next)
     if gates.device.type == "cpu":
         return fused_lstm_gates_bwd_plain(gates, prev_cell, dh, dc_next)
-    triton, _, bwd = _triton_kernel()
     dgates = torch.empty_like(gates)
     dpc = torch.empty_like(prev_cell)
-    n_rows, block_r, block_c = _grid(triton, prev_cell)
-    with torch.cuda.device(gates.device):
-        bwd[(triton.cdiv(n_rows, block_r),)](
-            gates, prev_cell, dh, dc_next, dgates, dpc, n_rows,
-            C=prev_cell.shape[-1], BLOCK_R=block_r, BLOCK_C=block_c,
-            num_warps=4,
-        )
+    _launch("lstm_gates_backward", prev_cell, gates, prev_cell, dh, dc_next,
+            dgates, dpc)
     fused_lstm_gates_bwd.launches += 1
     return dgates, dpc
 
@@ -249,22 +193,20 @@ class _FusedGates(torch.autograd.Function):
     def backward(ctx, dh, dc_next):
         gates, prev_cell = ctx.saved_tensors
         # autograd hands over None for an output nothing consumed (the last
-        # window's cell state) and may hand over a strided view: the kernel
-        # takes dense tensors, so both are made dense here, in the open
-        grads = [
-            torch.zeros_like(prev_cell) if g is None else g.contiguous()
-            for g in (dh, dc_next)
-        ]
-        return fused_lstm_gates_bwd(gates, prev_cell, *grads)
+        # window's cell state), which the kernel reads as zero, and may hand
+        # over a strided view, which is made dense here
+        return fused_lstm_gates_bwd(
+            gates, prev_cell,
+            *(None if g is None else g.contiguous() for g in (dh, dc_next)))
 
 
 def fused_lstm_gates(gates: torch.Tensor, prev_cell: torch.Tensor):
     """``(hidden, cell)`` from the gate conv output ``[B, H, W, 4C]`` and
     the previous cell ``[B, H, W, C]`` (same dtype). Differentiable in both.
 
-    A CUDA input launches the K3 Triton kernel (both tensors contiguous)
-    and counts the launch in ``fused_lstm_gates.launches``; its gradient is
-    :func:`fused_lstm_gates_bwd`. A CPU input runs
+    A CUDA input (bf16 or f32, both tensors contiguous) launches the K3
+    forward kernel and counts the launch in ``fused_lstm_gates.launches``;
+    its gradient is :func:`fused_lstm_gates_bwd`. A CPU input runs
     :func:`fused_lstm_gates_plain`, differentiable through autograd.
     """
     _check(gates, prev_cell)

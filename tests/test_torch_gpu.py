@@ -125,6 +125,92 @@ def test_k3_autograd_on_the_card_matches_the_cpu(cuda, dtype):
         _assert_gradients_close(a, b, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [8, 12, 64])
+def test_k3_scalar_and_vector_instantiations_match_plain(cuda, dtype, C):
+    """Both K3 kernels at a C that takes the 16-byte vector instantiation
+    and one that takes the scalar one (C = 12 in bf16)."""
+    rng = np.random.default_rng(C)
+    shape = (3, 7, 11)
+    g = torch.from_numpy(rng.normal(size=shape + (4 * C,)) * 3).to(cuda, dtype)
+    pc, dh, dc = (torch.from_numpy(rng.normal(size=shape + (C,))).to(
+        cuda, dtype) for _ in range(3))
+    plan = k3.launch_plan(C, dtype, 3 * 7 * 11)
+    assert plan.scalar == (C == 12 and dtype == torch.bfloat16)
+    f0 = k3.fused_lstm_gates.launches
+    b0 = k3.fused_lstm_gates_bwd.launches
+    got_f = k3.fused_lstm_gates(g, pc)
+    got_b = k3.fused_lstm_gates_bwd(g, pc, dh, dc)
+    want_f = k3.fused_lstm_gates_plain(g, pc)
+    want_b = k3.fused_lstm_gates_bwd_plain(g, pc, dh, dc)
+    torch.cuda.synchronize()
+    assert k3.fused_lstm_gates.launches == f0 + 1
+    assert k3.fused_lstm_gates_bwd.launches == b0 + 1
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    for a, b in zip(got_f, want_f):
+        mag = torch.maximum(a.float().abs(), b.float().abs())
+        assert ((a.float() - b.float()).abs() <= mag * ulp + 1e-6).all()
+    for a, b in zip(got_b, want_b):
+        _assert_gradients_close(a.float(), b.float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("missing", ["dh", "dc_next", "both"])
+def test_k3_backward_reads_a_missing_gradient_as_zero(cuda, dtype, missing):
+    rng = np.random.default_rng(5)
+    C, shape = 64, (2, 9, 13)
+    g = torch.from_numpy(rng.normal(size=shape + (4 * C,)) * 3).to(cuda, dtype)
+    pc, dh, dc = (torch.from_numpy(rng.normal(size=shape + (C,))).to(
+        cuda, dtype) for _ in range(3))
+    if missing in ("dh", "both"):
+        dh = None
+    if missing in ("dc_next", "both"):
+        dc = None
+    got = k3.fused_lstm_gates_bwd(g, pc, dh, dc)
+    zero = torch.zeros_like(pc)
+    ref = k3.fused_lstm_gates_bwd_plain(g, pc, zero if dh is None else dh,
+                                        zero if dc is None else dc)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _assert_gradients_close(a.float(), b.float(), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_convlstm_cell_under_autograd_matches_the_cpu(cuda, dtype):
+    """A ``ConvLSTMCell`` with K3 gates, forward and backward on the card
+    (one launch of each kernel, the cell's gradient missing), against the
+    same cell on the CPU: the gradients of its input and of its gates
+    conv's weight."""
+    from openess_tpu_torch.models.e2vid import ConvLSTMCell
+
+    rng = np.random.default_rng(9)
+    x0 = torch.from_numpy(rng.normal(size=(2, 8, 12, 20))).float()
+    h0 = torch.from_numpy(rng.normal(size=(2, 16, 12, 20))).float()
+    wgt = torch.from_numpy(rng.normal(size=(2, 16, 12, 20))).float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cpu", cuda):
+            torch.manual_seed(0)  # the same weights on both devices
+            c = ConvLSTMCell(8, 16, 3, fused_gates=True).to(dev)
+            x = x0.clone().to(dev, dtype).requires_grad_(True)
+            f0 = k3.fused_lstm_gates.launches
+            b0 = k3.fused_lstm_gates_bwd.launches
+            hidden, _ = c(x, (h0.to(dev, dtype), h0.to(dev, dtype)))
+            (hidden.float() * wgt.to(dev)).sum().backward()
+            launched = (k3.fused_lstm_gates.launches - f0,
+                        k3.fused_lstm_gates_bwd.launches - b0)
+            assert launched == ((1, 1) if dev == cuda else (0, 0))
+            out[str(dev)] = (x.grad.float().cpu().clone(),
+                             c.Gates.weight.grad.float().cpu().clone())
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, b in zip(*out.values()):
+        assert (a - b).abs().max() <= tol * b.abs().max()
+
+
 def _int_wire(rng, nw, k, H, W, t16):
     x = rng.integers(-2, W + 2, (nw, k)).astype(np.float32)
     y = rng.integers(-2, H + 2, (nw, k)).astype(np.float32)

@@ -166,27 +166,55 @@ def test_training_slice_module_is_scanned(name):
 
 def test_kernel_sources_are_in_the_package():
     """Each CUDA kernel's source is a file of the package (built at first
-    use from there), and its wrapper names it; K1 and K4 share a source,
-    as K5 and K6 do; K3's two Triton kernels live in their wrapper's
-    module."""
-    for source, wrapper in (("voxelize_chunked.cu", "ops/voxelize_chunked.py"),
-                            ("segment_pool.cu", "ops/segment_pool.py"),
-                            ("voxelize_grid.cu", "ops/voxelize_mxu.py")):
-        assert os.path.isfile(os.path.join(PORT, "csrc", source))
+    use from there), its C entries are there, and its wrapper names it;
+    K1 and K4 share a source, as K5 and K6 do, and K3's forward and
+    backward. No Triton kernel is left: the port needs no ``triton``."""
+    entries = {
+        "voxelize_chunked.cu": ("ops/voxelize_chunked.py",
+                                ("voxelize_chunked_trilinear",
+                                 "voxelize_chunked_bilinear_t")),
+        "segment_pool.cu": ("ops/segment_pool.py", ()),
+        "voxelize_grid.cu": ("ops/voxelize_mxu.py",
+                             ("voxelize_windows_trilinear",
+                              "voxelize_windows_bilinear_t")),
+        "lstm_gates.cu": ("ops/lstm_gates.py",
+                          ("lstm_gates_forward", "lstm_gates_backward")),
+    }
+    for source, (wrapper, names) in entries.items():
+        with open(os.path.join(PORT, "csrc", source)) as f:
+            cu = f.read()
+        for entry in names:
+            assert f'extern "C" int {entry}(' in cu
         with open(os.path.join(PORT, wrapper)) as f:
             assert f'_build.entry("{source}"' in f.read()
-    with open(os.path.join(PORT, "csrc", "voxelize_chunked.cu")) as f:
-        cu = f.read()
-    for entry in ("voxelize_chunked_trilinear", "voxelize_chunked_bilinear_t"):
-        assert f'extern "C" int {entry}(' in cu
-    with open(os.path.join(PORT, "csrc", "voxelize_grid.cu")) as f:
-        cu = f.read()
-    for entry in ("voxelize_windows_trilinear", "voxelize_windows_bilinear_t"):
-        assert f'extern "C" int {entry}(' in cu
-    with open(os.path.join(PORT, "ops", "lstm_gates.py")) as f:
-        k3 = f.read()
-    assert k3.count("@triton.jit") == 2
-    assert "def lstm_gates_fwd(" in k3 and "def lstm_gates_bwd(" in k3
+    for path in _port_files():
+        with open(path) as f:
+            text = f.read()
+        assert "@triton.jit" not in text, path
+        assert "triton" not in set(_imported_roots(ast.parse(text))), path
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_ptxas_log(tmp_path):
+    """The build phase's ``-Xptxas -v`` summary: one row per kernel with
+    its registers and spilled bytes, named whether or not ``c++filt``
+    can demangle it."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    (tmp_path / "libk.log").write_text(
+        "ptxas info    : Compiling entry function '_ZN49_GLOBAL__N__cabc5852"
+        "_16_voxelize_grid_cu_8d4f385516bil_splat_eventsEPKfS1_S1_S1_Pfxiiiii"
+        "' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 22 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_Z14lstm_gates_bwdI13__nv_"
+        "bfloat16Li8ELi1EEvPKT_S3_S3_S3_PS1_S4_ji' for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 76 registers, used 0 barriers\n")
+    rows = chip_smoke.ptxas_kernels(str(tmp_path / "libk.so"))
+    assert [r[1:] for r in rows] == [(22, 0), (76, 12)]
+    assert rows[0][0] == "bil_splat_events"
+    assert "lstm_gates_bwd" in rows[1][0]
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):
