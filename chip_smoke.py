@@ -44,7 +44,10 @@ The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is.
 
 Phases: device, build (one nvcc per source, started together; a kernel that
-spills registers fails the run), K1 vs plain (NW = 8), K3 vs plain and
+spills registers fails the run), K1 vs plain (NW = 8, also launched into a
+NaN-filled grid), K1's edge cases (shuffled chunks, malformed descriptors,
+padding chunks, an empty window, a ragged frame, more than 256 chunks a
+tile, each into a NaN-filled grid), K3 vs plain and
 PyTorch's fused LSTM cell (B = 1 and 8 at 440x640, B = 8 and 1 at 200x352),
 K3 backward vs plain and the cell's backward (B = 8, bf16 and f32, and with
 a missing gradient), K2 vs plain, serving (S=1 with the plain gate path,
@@ -54,7 +57,8 @@ at NW = 160, training, a training trace, an f32 reference check of the CUDA
 train step against the CPU one, the fine-tune with its trace, an f32
 reference check of a small fine-tune step on CUDA against the CPU, packing
 one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes), the
-DDD17 linear probe, DDD17 serving, K5 vs plain (NW = 160 and edge cases),
+DDD17 linear probe, DDD17 serving, K5 vs plain (NW = 160, its binning
+passes against theirs, its splat into a NaN-filled grid, edge cases),
 K6 vs plain (NW = 160, both polarity modes, edge cases), the DSEC grid-wire
 trainer, the DDD17 linear probe from disk, and the summary. The kernels'
 launch counters are zeroed before each main-path run and read after it. Any
@@ -431,6 +435,87 @@ def flagship_batch(s, k1, batch=8, seed=0):
     return out, pack_s
 
 
+def nan_prefilled(torch, launch_into, ref):
+    """``launch_into(grid)`` on a grid of ``ref``'s shape filled with NaN
+    first: the tile-owner splats write every cell, so a NaN left anywhere
+    shows. Returns ``(max|grid - ref|, grid)``, inf where a NaN is left.
+    Not a launch of the main path."""
+    grid = torch.full_like(ref, float("nan"))
+    launch_into(grid)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(grid).all()):
+        return float("inf"), grid
+    return (grid - ref).abs().max().item(), grid
+
+
+def k1_edge_wire(rng, case, t16):
+    """A small K1 wire for one edge case, with its frame ``(H, W)``: chunks
+    shuffled along the chunk axis, malformed and unaligned descriptors,
+    all-padding chunks (``counts == 0``) past the 256 a block reads at a
+    time, an empty window, a ragged 100x150 synthetic frame, or 16-event
+    chunks, so that one tile meets more than 256 of them."""
+    from openess_tpu_torch.ops import voxelize_chunked as k1
+
+    H, W = (100, 150) if case == "ragged" else (48, 96)
+    chunk = 16 if case == "many chunks" else 256
+    n = 5000
+    x = rng.uniform(-1.5, W + 0.5, (3, n)).astype(np.float32)
+    y = rng.uniform(-1.5, H + 0.5, (3, n)).astype(np.float32)
+    p = rng.integers(0, 2, (3, n)).astype(np.float32)
+    t = np.sort(rng.uniform(0, 1e6, (3, n)), axis=1)
+    wire = list(k1.chunk_events_batch(x, y, p, t, rng.random((3, n)) < 0.9,
+                                      height=H, width=W, chunk=chunk,
+                                      t16=t16))
+    nbc = wire[0].shape[1]
+    if case == "shuffled":
+        for w in range(3):
+            perm = rng.permutation(nbc)
+            for a in wire[:6]:
+                a[w] = a[w][perm]
+    elif case == "malformed":
+        h_pad, w_pad = k1.padded_grid(H, W)
+        r0 = rng.integers(-20, h_pad + 20, (3, nbc))
+        c0 = rng.integers(-20, w_pad + 20, (3, nbc))
+        wire[5] = ((r0 & 0xFFFF) | (c0 << 16)).astype(np.int32)
+    elif case == "padding chunks":
+        wire = list(k1.pad_wire_chunks(tuple(wire), 300))
+    elif case == "empty window":
+        wire[4][1] = 0
+    return tuple(wire), H, W
+
+
+def k1_edge_phase(torch, k1, dev):
+    """K1 against its plain version on the wires a tile owner must not
+    assume away, both time wires, each launched into a NaN-filled grid.
+    Returns the largest error relative to max|plain|."""
+    phase("K1 edge cases (tile owner): NaN-filled output, shuffled chunks, "
+          "malformed descriptors, padding chunks, an empty window, a ragged "
+          "100x150 frame, >256 chunks a tile")
+    rng = np.random.default_rng(11)
+    worst = 0.0
+    for case in ("shuffled", "malformed", "padding chunks", "empty window",
+                 "ragged", "many chunks"):
+        for t16 in (False, True):
+            wire, H, W = k1_edge_wire(rng, case, t16)
+            args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in wire)
+            ref = k1.voxelize_chunked_trilinear_plain(
+                *args, num_bins=5, height=H, width=W)
+            err, got = nan_prefilled(
+                torch, lambda g: k1.voxelize_chunked_trilinear_into(g, *args),
+                ref)
+            rel = err / ref.abs().max().item()
+            # the empty window's grid is exactly zero
+            empty_ok = case != "empty window" or not bool(got[1].any())
+            print(f"  [{case}, {'v2 uint16' if t16 else 'v1 f32'} wire, "
+                  f"{H}x{W}, {args[0].shape[1]} chunks] max|kernel-plain| "
+                  f"{rel:.3e} of max {'OK' if rel <= K1_REL_TOL else 'FAIL'}")
+            if not rel <= K1_REL_TOL or not empty_ok:
+                raise AssertionError(f"K1 edge case {case}: {rel}")
+            worst = max(worst, rel)
+    return dict(edge_cases_rel_err=worst)
+
+
 def k1_nw160_phase(torch, k1, dev, flush, host_batch):
     """K1 against its plain version on the whole flagship batch (NW = 160
     windows, a 983 MB f32 grid): the shape the train step launches."""
@@ -448,23 +533,29 @@ def k1_nw160_phase(torch, k1, dev, flush, host_batch):
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     per_window = (got - ref).abs().amax(dim=(1, 2, 3))
-    ok = err <= K1_REL_TOL * scale
+    del got
+    nan_err, _ = nan_prefilled(
+        torch, lambda g: k1.voxelize_chunked_trilinear_into(g, *args), ref)
+    ok = max(err, nan_err) <= K1_REL_TOL * scale
     del ref
     ms_k = cuda_ms(torch, run_k, flush, iters=5, warmup=1)
     events = int(host_batch["ev_counts"].sum())
     nbytes = (events * 7 + sum(host_batch[k].nbytes for k in
                                ("ev_counts", "ev_r0", "ev_trange"))
-              + got.numel() * 4)
+              + args[0].shape[0] * 5 * 480 * 640 * 4)
     b_ms, b_by = bound(nbytes, events * 8 * 6, F32_OPS_PER_S)
-    print(f"K1 [NW=160] grid {tuple(got.shape)} max|kernel-plain| {err:.3e} "
+    print(f"K1 [NW=160] grid {(args[0].shape[0], 5, 480, 640)} "
+          f"max|kernel-plain| {err:.3e}, into a NaN-filled grid "
+          f"{nan_err:.3e} "
           f"(max|plain| {scale:.3f}, bound {K1_REL_TOL:.0e} x max; last "
           f"window {per_window[-1].item():.3e}) {'OK' if ok else 'FAIL'}; "
           f"kernel_ms {ms_k:.4f} bound_ms {b_ms:.4f} ({b_by}; {events} "
           f"events, {nbytes / 1e6:.1f} MB)")
     if not ok:
         raise AssertionError(f"K1 disagrees with its plain version at "
-                             f"NW=160: {err}")
-    return dict(ms_nw160=ms_k, bound_ms_nw160=b_ms, max_abs_err_nw160=err)
+                             f"NW=160: {err}, {nan_err}")
+    return dict(ms_nw160=ms_k, bound_ms_nw160=b_ms,
+                max_abs_err_nw160=max(err, nan_err))
 
 
 class OneBatchDataset:
@@ -1427,7 +1518,7 @@ def kernel_alone(torch, k56, name, events, shape, *ints):
 
     def run():
         grid.zero_()
-        k56._launch(name, events, grid, *ints)
+        k56._launch(name, (*events, grid), grid.device, *ints)
     return run
 
 
@@ -1448,10 +1539,28 @@ def normalize_ms(torch, grid, flush):
     return one, loop
 
 
+def sorted_within_slots(torch, k56, counts, offsets, binned):
+    """K5's binned events of every run, ordered by slot, then by (x, y, tn,
+    v): the card fills each run in any order, so two binnings agree when
+    these agree."""
+    rows, slot = k56.binned_rows(counts, offsets)
+    b = binned[rows]
+    order = torch.arange(rows.numel(), device=b.device)
+    for col in (3, 2, 1, 0):
+        order = order[torch.sort(b[order, col], stable=True).indices]
+    order = order[torch.sort(slot[order], stable=True).indices]
+    return b[order]
+
+
 def k5_phase(torch, k56, dev, flush, windows):
     """K5 against its plain version on one DSEC grid-wire batch (NW = 160
     windows of 100 000 events at 480x640, the times cast to f32 on the host
-    as the loader casts them) and on the edge cases. Returns the row."""
+    as the loader casts them) and on the edge cases; its binning passes
+    against theirs (counts exactly, each slot's events as a multiset); its
+    splat into a NaN-filled grid. Times the wrapper (raw events to the
+    grid), the binning and the splat apart, and each pass by the profiler.
+    Returns the row."""
+    from openess_tpu_torch.ops.tile_splat import tile_plan
     from openess_tpu_torch.ops.voxelize import voxelize_windows_trilinear
 
     phase("K5 voxelize_windows_trilinear_mxu vs plain (NW = 160, 100k "
@@ -1462,40 +1571,78 @@ def k5_phase(torch, k56, dev, flush, windows):
     ev = [torch.from_numpy(a.reshape(-1)).to(dev) for a in stacked]
     del stacked
     kw = dict(num_bins=5, height=480, width=640)
+    plan = tile_plan(5, 480, 640)
     run_k = lambda: k56.voxelize_windows_trilinear_mxu(*ev, num_windows=nw,
                                                         **kw)
     run_p = lambda: voxelize_windows_trilinear(*ev, num_windows=nw, **kw)
+    run_b = lambda: k56.bin_events_trilinear(*ev, num_windows=nw, **kw)
     got, ref = run_k(), run_p()
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
-    ok = err <= K56_REL_TOL * scale
+    del got
+    counts, offsets, binned = run_b()
+    nan_err, _ = nan_prefilled(torch, lambda g: k56.splat_binned_trilinear(
+        counts, offsets, binned, g, num_windows=nw, plan=plan), ref)
+    ok = max(err, nan_err) <= K56_REL_TOL * scale
     del ref
+    pc, po, pb = k56.bin_events_trilinear_plain(*ev, num_windows=nw,
+                                                plan=plan)
+    kept = int(pc.sum())
+    bin_checks = {
+        "counts equal": bool(torch.equal(counts, pc)),
+        "offsets equal": bool(torch.equal(offsets, po)),
+        "each slot's events equal as a multiset": bool(torch.equal(
+            sorted_within_slots(torch, k56, counts, offsets, binned),
+            sorted_within_slots(torch, k56, pc, po, pb))),
+    }
+    del pc, po, pb
+    print(f"K5 binning vs plain ({kept} of {ev[0].numel()} events kept, "
+          f"{plan.slots(nw)} slots of {plan.tiles} {plan.rows}x{plan.cols} "
+          "tiles x 4 categories a window): " + ", ".join(
+              f"{k} {'ok' if v else 'FAIL'}" for k, v in bin_checks.items()))
+    got = run_k()
     ms_n, ms_n_loop = normalize_ms(torch, got.view(nw, 5, 480, 640), flush)
     del got
     ms_w = cuda_ms(torch, run_k, flush, iters=10)
-    ms_k = cuda_ms(torch, kernel_alone(
-        torch, k56, "voxelize_windows_trilinear",
-        k56.trilinear_events(*ev, nw, 5), (nw * 5, 480, 640), nw,
-        ev[0].numel() // nw, 5, 480, 640), flush, iters=10)
+    ms_bin = cuda_ms(torch, run_b, flush, iters=10)
+    grid = torch.empty((nw * 5, 480, 640), device=dev)
+    ms_splat = cuda_ms(torch, lambda: k56.splat_binned_trilinear(
+        counts, offsets, binned, grid, num_windows=nw, plan=plan), flush,
+        iters=10)
+    del grid
+    # each pass's mean device time a launch (the profiler; a call is the
+    # passes and the scratch's zero fill)
+    avg, _, _ = device_profile(torch, lambda: [run_k() for _ in range(5)])
+    passes = {e.key.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0].split("<")[0].split("::")[-1]:
+              e.self_device_time_total / e.count / 1e3 for e in avg}
     ms_p = cuda_ms(torch, run_p, flush, iters=3, warmup=1)
     events = int(ev[4].sum())
-    # the kernel reads its 4 prepared f32 arrays (16 B a slot); the wrapper
-    # reads x, y, p, t and the bool valid (17 B a slot); both write the grid
+    # the wrapper must read x, y, p, t and the bool valid (17 B a slot) and
+    # write the grid; the splat alone reads its 16 B a kept event
     grid_bytes = nw * 5 * 480 * 640 * 4
-    nbytes = ev[0].numel() * 16 + grid_bytes
-    b_ms, b_by = bound(nbytes, events * 8 * 6, F32_OPS_PER_S)
-    b_ms_w, _ = bound(ev[0].numel() * 17 + grid_bytes, events * 8 * 6,
-                      F32_OPS_PER_S)
-    print(f"K5 [NW={nw}] max|kernel-plain| {err:.3e} (max|plain| "
-          f"{scale:.3f}, bound {K56_REL_TOL:.0e} x max) "
-          f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} (zero fill and "
-          f"kernel) bound_ms {b_ms:.4f} ({b_by}; {events} events, "
-          f"{nbytes / 1e6:.1f} MB); the wrapper {ms_w:.4f} against "
-          f"{b_ms_w:.4f}; plain_ms {ms_p:.4f}")
-    if not ok:
-        raise AssertionError(f"K5 disagrees with its plain version: {err}")
-    del ev
+    b_ms, b_by = bound(ev[0].numel() * 17 + grid_bytes, events * 8 * 6,
+                       F32_OPS_PER_S)
+    b_ms_splat, _ = bound(kept * 16 + grid_bytes, kept * 8 * 6,
+                          F32_OPS_PER_S)
+    # what binning moves beyond the bound: the scatter's second read of
+    # the raw events, the binned events written and read again
+    extra_ms = (ev[0].numel() * 17 + kept * 32) / HBM_BYTES_PER_S * 1e3
+    print(f"K5 [NW={nw}] max|kernel-plain| {err:.3e}, the splat into a "
+          f"NaN-filled grid {nan_err:.3e} (max|plain| {scale:.3f}, bound "
+          f"{K56_REL_TOL:.0e} x max) {'OK' if ok else 'FAIL'}; the wrapper "
+          f"(raw events to the grid) {ms_w:.4f} ms against bound_ms "
+          f"{b_ms:.4f} ({b_by}; {events} valid events, 17 B a slot and the "
+          f"grid); binning {ms_bin:.4f}, splat {ms_splat:.4f} against "
+          f"{b_ms_splat:.4f}; binning's bytes beyond the bound {extra_ms:.4f}"
+          f" ms ({extra_ms / b_ms:.0%} of it); passes (profiler, ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+          + f"; plain_ms {ms_p:.4f}")
+    if not ok or not all(bin_checks.values()):
+        raise AssertionError(f"K5 disagrees with its plain version: {err}, "
+                             f"{nan_err}, {bin_checks}")
+    del ev, counts, offsets, binned
     edge = grid_edge_cases(
         torch, dev,
         lambda e, n: k56.voxelize_windows_trilinear_mxu(*e, num_windows=n,
@@ -1506,15 +1653,19 @@ def k5_phase(torch, k56, dev, flush, windows):
         name="K5 voxelize_windows_trilinear_mxu (DSEC grid wire)",
         route="cuda", source="openess_tpu_torch/csrc/voxelize_grid.cu",
         replaces="openess_tpu/ops/voxelize_mxu.py:54",
-        max_abs_err=err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+        max_abs_err=max(err, nan_err), ms=ms_w, plain_ms=ms_p, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, ms_wrapper=ms_w,
-        bound_ms_wrapper=b_ms_w, normalize_ms=ms_n,
-        normalize_ms_per_window_loop=ms_n_loop, edge_cases_rel_err=edge,
+        bound_ms_wrapper=b_ms, ms_binning=ms_bin,
+        ms_splat=ms_splat, bound_ms_splat=b_ms_splat,
+        binning_extra_bytes_ms=extra_ms, pass_ms=passes,
+        normalize_ms=ms_n, normalize_ms_per_window_loop=ms_n_loop,
+        edge_cases_rel_err=edge,
         check=f"ok: max|kernel-plain| <= {K56_REL_TOL:g} x max|plain| at "
-              "NW = 160 and on the edge cases; ms is the zero fill and the "
-              "kernel on prepared events (16 B a slot in bound_ms), "
-              "ms_wrapper adds the time normalization and the padding "
-              "routing (17 B a slot in bound_ms_wrapper)",
+              "NW = 160 (the splat also into a NaN-filled grid) and on the "
+              "edge cases; the binning's counts and offsets equal the plain "
+              "version's, each slot's events as a multiset; ms is the "
+              "wrapper, raw events to the grid (17 B a slot and the grid in "
+              "bound_ms), ms_splat the splat pass on binned events",
     )
 
 
@@ -1953,8 +2104,11 @@ def main():
         run_p = lambda: k1.voxelize_chunked_trilinear_plain(
             *args, num_bins=BINS, height=H, width=W)
         got, ref = run_k(), run_p()
+        nan_err, _ = nan_prefilled(
+            torch, lambda g: k1.voxelize_chunked_trilinear_into(g, *args),
+            ref)
         torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
+        err = max((got - ref).abs().max().item(), nan_err)
         scale = ref.abs().max().item()
         ok = err <= K1_REL_TOL * scale
         ms_k = cuda_ms(torch, run_k, flush)
@@ -1965,7 +2119,8 @@ def main():
                   + wire[5].nbytes + wire[6].nbytes + got.numel() * 4)
         b_ms, b_by = bound(nbytes, events * 8 * 6, F32_OPS_PER_S)
         tag = "v2 uint16" if t16 else "v1 f32"
-        print(f"K1 [{tag} wire] max|kernel-plain| {err:.3e} "
+        print(f"K1 [{tag} wire] max|kernel-plain| {err:.3e} (also "
+              f"launched into a NaN-filled grid) "
               f"(max|plain| {scale:.3f}, bound {K1_REL_TOL:.0e} x max) "
               f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
               f"{ms_p:.4f} bound_ms {b_ms:.4f} ({b_by}; {events} events, "
@@ -1982,8 +2137,10 @@ def main():
         max_abs_err=k1_err, ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
         check=f"ok: max|kernel-plain| <= {K1_REL_TOL:g} x max|plain|, "
-              "both time wires",
+              "both time wires, NW = 8 and 160, each also launched into a "
+              "NaN-filled grid, and on the edge cases",
     )
+    kernels["K1"].update(k1_edge_phase(torch, k1, dev))
 
     phase("K3 fused_lstm_gates forward vs plain (bf16, 440x640 ConvLSTMs)")
     gen = torch.Generator(device=dev).manual_seed(1205)

@@ -1,6 +1,6 @@
 // K1 and K4: the two voxelizers of the sorted-chunk event wire, for Hopper
-// (sm_90a). K1 (tri_splat, DSEC) is described first, K4 (bil_splat, DDD17)
-// above its kernel.
+// (sm_90a). K1 (tri_tile_splat, DSEC) is described first, K4 (bil_splat,
+// DDD17) above its kernel.
 //
 // K1: signed trilinear splat of the sorted-chunk event wire into per-window
 // voxel grids.
@@ -22,82 +22,106 @@
 // unit; that rounding is an artefact of the unit and is not reproduced.
 //
 // What bounds it on an H100: per 100k-event window it reads ~0.7 MB of wire
-// (7 B/event) and writes a 5 x 480 x 640 f32 grid (6.1 MB), a few
-// microseconds of HBM traffic, but it issues 800k f32 atomicAdds into that
-// grid, which resolve in L2. This first design is one block per
-// (window, chunk), threads striding over the chunk's events, atomics
-// straight into global memory; the wrapper zero-fills the grid. A chunk's
-// events all land in one 24 x 256 block of rows and columns, so a later
-// version can accumulate each chunk's bins x 17 x 257 corner footprint in
-// shared memory and flush it once, turning most global atomics into
-// shared-memory ones.
+// (7 B an event) and writes a 5 x 480 x 640 f32 grid (6.1 MB); at 160
+// windows ~1.1 GB, 0.33 ms of HBM traffic. Its first design (one thread an
+// event, 8 f32 atomicAdds into a zero-filled grid in device memory) took
+// 8x that: 128M atomics resolving in L2, behind a 983 MB zero fill.
+//
+// This design is the tile-owner splat of csrc/tile_splat.cuh: one block
+// per (tile, window) accumulates its tile in shared memory and writes it
+// once, so the grid is written once, with no fill and no global atomics.
+// A block finds its events by reading its window's chunk descriptors, 256
+// at a time: a chunk takes part when its clamped block, cut to the frame,
+// meets the tile, and its corners are then kept in that intersection. No
+// order of chunks and no alignment of r0 or c0 is assumed, so a shuffled
+// wire or a malformed descriptor gives the same grid. The cost of owning
+// tiles is read amplification: the chunker's blocks are 128-column aligned
+// and 24 rows deep, so with 16 x 128 tiles each chunk meets 2 column tiles
+// and 2 row tiles (its own, and the one below for the corner row r0 + 16):
+// its events are read 4 times, ~28 B an event, 2.8 MB a window. They come
+// from L2 (a window's wire is 0.7 MB, and its 150 tiles' blocks run
+// together), so device memory still sees the wire about once; the price is
+// the 4x work of reading and testing events, and the atomics of chunks
+// sorted by x, whose lanes meet on neighbouring cells: K1 takes about half
+// as long again as K5's splat of the same number of corners
+// (tools/tile_splat_sweep.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_splat.cuh"
+
 namespace {
+
+using tile_splat::kThreads;
 
 constexpr float kInvFixedPoint = 1.0f / 32.0f;  // FIXED_POINT = 32
 constexpr int kRowsBlock = 24;                  // _ROWS_TRI
 constexpr int kColsBlock = 256;                 // _COLS_TRI
-constexpr int kThreads = 256;
 
+// Reads slot s of the wire, dequantized.
 template <bool kT16>
-__global__ void __launch_bounds__(kThreads)
-tri_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
-          const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
-          const int32_t* __restrict__ counts, const int32_t* __restrict__ desc,
-          const float* __restrict__ t_range, float* __restrict__ out,
-          int nbc, int chunk, int bins, int height, int width, int r0_max,
-          int c0_max) {
-  const int w = blockIdx.y;
-  const long long wc = (long long)w * nbc + blockIdx.x;
-  const int n = min(counts[wc], chunk);
-  if (n <= 0) return;
-  // packed descriptor: row offset | (col offset << 16), clamped as the
-  // TPU wrapper clamps it (voxelize_chunked.py:498-501)
-  const int d = desc[wc];
-  const int r0 = min(max(d & 0xFFFF, 0), r0_max);
-  const int c0 = min(max(d >> 16, 0), c0_max);
-  const int row_hi = min(r0 + kRowsBlock, height);
-  const int col_hi = min(c0 + kColsBlock, width);
-  const float tb = (float)(bins - 1);
-  const float rng = kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f);
-  float* grid = out + (long long)w * bins * height * width;
-  const long long base = wc * chunk;
+struct WireReader {
+  const int16_t* __restrict__ xq;
+  const int16_t* __restrict__ yq;
+  const uint8_t* __restrict__ pq;
+  const void* __restrict__ t_rel;
+  float tb, rng;
 
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const long long s = base + e;
-    const float x = (float)xq[s] * kInvFixedPoint;
-    const float y = (float)yq[s] * kInvFixedPoint;
-    float tn;
+  __device__ __forceinline__ void load(long long s, float& x, float& y,
+                                       float& tn, float& v) const {
+    x = (float)xq[s] * kInvFixedPoint;
+    y = (float)yq[s] * kInvFixedPoint;
     if (kT16) {
       tn = tb * (float)((const uint16_t*)t_rel)[s] * (1.0f / 65535.0f);
     } else {
       tn = tb * ((const float*)t_rel)[s] / rng;
     }
-    const float v = 2.0f * (float)pq[s] - 1.0f;
-    const int x0 = (int)x, y0 = (int)y, t0 = (int)tn;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int cx = x0 + dx;
-      if (cx < c0 || cx >= col_hi || cx < 0) continue;
-      const float wx = v * (1.0f - fabsf((float)cx - x));
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int cy = y0 + dy;
-        if (cy < r0 || cy >= row_hi || cy < 0) continue;
-        const float wxy = wx * (1.0f - fabsf((float)cy - y));
-#pragma unroll
-        for (int dt = 0; dt < 2; ++dt) {
-          const int ct = t0 + dt;
-          if (ct < 0 || ct >= bins) continue;
-          const float wt = 1.0f - fabsf((float)ct - tn);
-          atomicAdd(grid + ((long long)ct * height + cy) * width + cx,
-                    wxy * wt);
-        }
-      }
-    }
+    v = 2.0f * (float)pq[s] - 1.0f;
   }
+};
+
+template <bool kT16>
+__global__ void __launch_bounds__(kThreads)
+tri_tile_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
+               const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
+               const int32_t* __restrict__ counts,
+               const int32_t* __restrict__ desc,
+               const float* __restrict__ t_range, float* __restrict__ out,
+               int nbc, int chunk, int bins, int height, int width,
+               int r0_max, int c0_max, int rows, int cols, int pitch,
+               int tiles_x) {
+  extern __shared__ float4 dyn_smem[];
+  float* acc = reinterpret_cast<float*>(dyn_smem);
+  __shared__ tile_splat::ChunkSegs segs;
+  const int w = blockIdx.y;
+  const tile_splat::Tile tile =
+      tile_splat::tile_of(blockIdx.x, rows, cols, tiles_x, height, width);
+  tile_splat::zero_tile(acc, bins * rows * pitch);
+  const WireReader<kT16> rd{xq, yq, pq, t_rel, (float)(bins - 1),
+                            kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f)};
+
+  for (int j0 = 0; j0 < nbc; j0 += kThreads) {
+    const int j = j0 + threadIdx.x;
+    const long long wc = (long long)w * nbc + j;
+    int n = 0;
+    int4 box = make_int4(0, 0, 0, 0);
+    if (j < nbc) {
+      n = min(counts[wc], chunk);
+      // packed descriptor: row offset | (col offset << 16), clamped as the
+      // TPU wrapper clamps it (voxelize_chunked.py:498-501)
+      const int d = desc[wc];
+      const int r0 = min(max(d & 0xFFFF, 0), r0_max);
+      const int c0 = min(max(d >> 16, 0), c0_max);
+      box = make_int4(max(c0, tile.c0), min(c0 + kColsBlock, tile.c1),
+                      max(r0, tile.r0), min(r0 + kRowsBlock, tile.r1));
+    }
+    const bool keep = n > 0 && box.x < box.y && box.z < box.w;
+    tile_splat::gather_segs(segs, keep, n, wc * chunk, box);
+    tile_splat::accumulate(acc, segs, rd, tile, bins, rows, pitch);
+    __syncthreads();  // segs is rewritten by the next 256 chunks
+  }
+  tile_splat::store_tile(acc, out + (long long)w * bins * height * width,
+                         tile, bins, rows, pitch, height, width);
 }
 
 // K4: DDD17 voxelizer, exact pixel and bilinear in time.
@@ -176,28 +200,29 @@ bil_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
 
 }  // namespace
 
-// Plain C entry for ctypes. Pointers are device pointers; out must hold
-// nw * bins * height * width zeros. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// Plain C entry for ctypes (K1). Pointers are device pointers; out holds
+// nw * bins * height * width floats, each written once (no fill needed).
+// rows, cols, pitch and tiles_x are the tile plan's, smem its accumulator
+// bytes (openess_tpu_torch/ops/tile_splat.py). Launches on `stream` and
+// returns the CUDA error (0 on success).
 extern "C" int voxelize_chunked_trilinear(
     const void* xq, const void* yq, const void* pq, const void* t_rel,
     const void* counts, const void* desc, const void* t_range, void* out,
     int nw, int nbc, int chunk, int bins, int height, int width, int r0_max,
-    int c0_max, int t16, void* stream) {
-  if (nw <= 0 || nbc <= 0 || chunk <= 0) return 0;
-  const dim3 grid(nbc, nw);
+    int c0_max, int rows, int cols, int pitch, int tiles, int tiles_x,
+    int smem, int t16, void* stream) {
+  if (nw <= 0) return 0;
+  const dim3 grid(tiles, nw);
   cudaStream_t st = (cudaStream_t)stream;
-  if (t16) {
-    tri_splat<true><<<grid, kThreads, 0, st>>>(
-        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
-        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
-        (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max);
-  } else {
-    tri_splat<false><<<grid, kThreads, 0, st>>>(
-        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
-        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
-        (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max);
-  }
+  static int allowed[2][64];
+  auto kernel = t16 ? tri_tile_splat<true> : tri_tile_splat<false>;
+  cudaError_t err = tile_splat::allow_smem(kernel, smem, allowed[t16 != 0]);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, st>>>(
+      (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+      (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+      (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max, rows,
+      cols, pitch, tiles_x);
   return (int)cudaGetLastError();
 }
 

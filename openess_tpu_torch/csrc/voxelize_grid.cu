@@ -1,86 +1,346 @@
-// K5 and K6: the grid wire's two voxelizers, splats of raw padded f32
-// events into full per-window grids, for Hopper (sm_90a). The wrapper
-// (openess_tpu_torch/ops/voxelize_mxu.py) prepares the events as the TPU
-// path's wrapper does around its pallas_call: per-window time normalization
-// over the valid events, padding routed out of every corner. These kernels
-// take those four prepared f32 arrays, flat over nw * k event slots, and a
-// zero-filled f32 grid [nw, channels, height, width].
+// K5 and K6: the grid wire's two voxelizers, splats of raw padded events
+// into full per-window grids, for Hopper (sm_90a).
 //
-// K5 (tri_splat_events, DSEC): replaces openess_tpu/ops/voxelize_mxu.py:
-// _kernel (reached through voxelize_windows_trilinear_mxu). It computes the
-// same function: an event of value v = +-1 at (x, y, tn) adds
+// K5 (DSEC): replaces openess_tpu/ops/voxelize_mxu.py:_kernel (reached
+// through voxelize_windows_trilinear_mxu). It computes the same function:
+// each window's valid times are normalized to tn = (bins - 1) * (t - t_first)
+// / dt over the window's valid events (dt = t_last - t_first, 1 unless
+// positive), and an event of value v = 2p - 1 at (x, y, tn) adds
 // v * wx * wy * wt to the 8 corners {x0, x0+1} x {y0, y0+1} x {t0, t0+1},
 // the corners truncated toward zero (a C (int) cast, torch .int()) and
 // w = 1 - |corner - coord|. A fractional negative coordinate so keeps the
 // reference's corner pair {0, 1} with a negative weight on corner 1. A
 // corner outside [0, W) x [0, H) x [0, bins) is dropped, as the TPU
-// kernel's iota columns drop it. Padding (value 0) returns at once.
+// kernel's iota columns drop it; padding adds nothing.
+//
+// K5 is three passes over raw x, y, p, t (f32) and valid (bool), flat over
+// nw * k event slots, with scratch from the wrapper
+// (openess_tpu_torch/ops/voxelize_mxu.py) and the tile plan of
+// openess_tpu_torch/ops/tile_splat.py:
+//   (a) bin_count: per window, the first and last valid time (atomic max of
+//       order-preserving keys) and the events per slot, a slot being
+//       (window, home tile, category), in a histogram privatized in shared
+//       memory. Padding and events with no corner in the frame are dropped
+//       here. An event's home tile holds its smallest in-frame corner; its
+//       category says whether its corners also reach the next tile column
+//       (right), the next tile row (down), both, or neither (interior).
+//   (b) bin_scatter: each kept event's prepared (x, y, tn, v), 16 B, goes
+//       to its slot's run. Window w's runs lie in slot order from w * k,
+//       so no scan crosses windows: each block scans its window's counts
+//       in shared memory, ranks its events per slot there and reserves
+//       each slot's part with one global atomic.
+//   (c) tri_tile_splat_binned: the tile-owner splat of csrc/tile_splat.cuh
+//       over the tile's own four categories and, from its left, upper and
+//       upper-left neighbours, the categories that spill into it.
+// Both binning passes read their block's events before they use any, so a
+// thread waits for memory once.
+//
+// The +1 corners: an event is stored once, in its home tile, and a
+// neighbour reads only the spill categories. Emitting a copy into every
+// tile an event touches costs the same reads and writes (~1.07 copies at
+// 16 x 128 on uniform events), but a wrapper that must size the scratch
+// before the counts exist would have to allow 4 copies an event (1 GB at
+// 160 windows of 100k): stored once, the scratch is at most the events.
+//
+// What bounds K5 on an H100: at DSEC's batch (160 windows of 100k events,
+// 5 x 480 x 640) it must read 17 B a raw event slot (272 MB) and write the
+// 983 MB grid: 0.375 ms of HBM traffic. Binning adds a second read of the
+// raw events (the scatter), 16 B written and read again a kept event
+// (~510 MB), and ~1 MB of counts and offsets: about 0.23 ms more. Its
+// first design, one thread an event with 8 f32 atomicAdds in device memory
+// into a zero-filled grid, behind four elementwise preparation passes in
+// the wrapper, took 8.5x the bound.
 //
 // K6 (bil_splat_events, DDD17): replaces openess_tpu/ops/voxelize_mxu.py:
 // _kernel_bilinear_t (reached through voxelize_windows_bilinear_t_mxu).
-// An event at integer pixel (trunc x, trunc y) adds 1 - dts to time bin
-// ti = trunc(tn) and dts = tn - ti to bin ti + 1 where that bin exists,
-// signed by its polarity into `bins` channels, or unsigned into the positive
-// (pol > 0) or negative block of 2 * bins channels with separate_pol. It
-// adds nothing unless tn >= 0, tn < bins and pol != 0, the TPU kernel's
-// `ok`; the wrapper sets pol 0 and tn -4 for padding and out-of-frame
-// events. This is K4's splat (csrc/voxelize_chunked.cu) on raw events in
-// place of the sorted-chunk wire; with no chunk blocks to mask, the two
-// kernels share no code.
+// It takes four prepared f32 arrays from its wrapper (per-window time
+// normalization, polarity 0 counted as -1, padding and out-of-frame events
+// routed out by markers) and a zero-filled grid. An event at integer pixel
+// (trunc x, trunc y) adds 1 - dts to time bin ti = trunc(tn) and dts =
+// tn - ti to bin ti + 1 where that bin exists, signed by its polarity into
+// `bins` channels, or unsigned into the positive (pol > 0) or negative
+// block of 2 * bins channels with separate_pol. It adds nothing unless
+// tn >= 0, tn < bins and pol != 0, the TPU kernel's `ok`. This is K4's
+// splat (csrc/voxelize_chunked.cu) on raw events in place of the
+// sorted-chunk wire. It is a scatter, one thread an event slot, two f32
+// atomicAdds into global memory; only the order of the atomics differs
+// from the plain version. At DDD17's batch (160 x 32k events,
+// 5 x 260 x 346) it reads 82 MB and writes 288 MB (576 MB with
+// separate_pol).
 //
-// Both compute in f32, in the plain version's product order. The TPU
-// kernels build one-hot matrices and multiply them in bf16 on the matrix
-// unit, a way around scatters; these are scatters, one thread per event
-// slot, with one f32 atomicAdd per corner into global memory (8 for K5, 2
-// for K6). Only the order of the atomics differs from the plain version.
-//
-// What bounds them on an H100: K5 at DSEC's batch (160 windows of 100k
-// events, 5 x 480 x 640) reads 16 B per event slot (256 MB) and writes a
-// 983 MB grid: ~0.37 ms of HBM traffic at 3.35 TB/s. It issues up to 128M
-// atomics; consecutive slots belong to one window, so the ~270k threads in
-// flight touch ~3 windows' grids (6.1 MB each), which stay in the 50 MB L2
-// where the atomics resolve. K6 at DDD17's batch (160 x 32k events,
-// 5 x 260 x 346) reads 82 MB and writes 288 MB (576 MB with separate_pol),
-// with 2 atomics per event. Offsets into the grid are 64-bit.
+// Both compute in f32, in the plain versions' product order; the TPU
+// kernels' one-hot matrices multiplied in bf16 on the matrix unit are not
+// reproduced. Offsets into the grid are 64-bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_splat.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using tile_splat::kThreads;
+using tile_splat::kWarps;
+constexpr int kPerThread = 8;                  // events a thread, (a), (b)
+constexpr int kSlice = kThreads * kPerThread;  // events a block
+constexpr int kCategories = 4;                 // interior, down, both, right
+constexpr int kRankBits = 11;                  // kSlice = 1 << kRankBits
 
-__global__ void __launch_bounds__(kThreads)
-tri_splat_events(const float* __restrict__ xs, const float* __restrict__ ys,
-                 const float* __restrict__ tns, const float* __restrict__ vs,
-                 float* __restrict__ out, long long n, int k, int bins,
-                 int height, int width) {
-  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const float v = vs[s];
-  if (v == 0.0f) return;  // padding
-  const float x = xs[s], y = ys[s], tn = tns[s];
-  const long long plane = (long long)height * width;
-  float* grid = out + (s / k) * bins * plane;
-  const int x0 = (int)x, y0 = (int)y, t0 = (int)tn;
+// The slot of an event within its window (home tile * 4 + category), or
+// -1 when none of its corners is in the frame; ops/tile_splat.event_slots.
+// rows and cols are powers of two (the plan halves them), given as shifts.
+__device__ __forceinline__ int event_slot(float x, float y, int height,
+                                          int width, int row_shift,
+                                          int col_shift, int tiles_x) {
+  if (!(x > -2.0f && x < (float)width && y > -2.0f && y < (float)height))
+    return -1;
+  const int x0 = (int)x, y0 = (int)y;
+  const int tile =
+      (max(y0, 0) >> row_shift) * tiles_x + (max(x0, 0) >> col_shift);
+  const bool right = x0 >= 0 && x0 + 1 < width &&
+                     ((x0 + 1) & ((1 << col_shift) - 1)) == 0;
+  const bool down = y0 >= 0 && y0 + 1 < height &&
+                    ((y0 + 1) & ((1 << row_shift) - 1)) == 0;
+  const int cat = right ? (down ? 2 : 3) : (down ? 1 : 0);
+  return tile * kCategories + cat;
+}
+
+// Order-preserving unsigned keys of f32, so atomicMax finds a maximum and,
+// on the complemented key, a minimum; 0 stands below every key.
+__device__ __forceinline__ unsigned int float_key(float f) {
+  const unsigned int u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_float(unsigned int k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// A block's kPerThread event slots of window w, read at once (one round
+// trip to memory), the slots past k and the padding marked invalid.
+struct RawEvents {
+  float x[kPerThread], y[kPerThread], t[kPerThread], p[kPerThread];
+  bool ok[kPerThread];
+
+  __device__ __forceinline__ void load(const float* __restrict__ xs,
+                                       const float* __restrict__ ys,
+                                       const float* __restrict__ ts,
+                                       const float* __restrict__ ps,
+                                       const uint8_t* __restrict__ valid,
+                                       long long base, int k) {
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
-    const int cx = x0 + dx;
-    if (cx < 0 || cx >= width) continue;
-    const float wx = v * (1.0f - fabsf((float)cx - x));
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int cy = y0 + dy;
-      if (cy < 0 || cy >= height) continue;
-      const float wxy = wx * (1.0f - fabsf((float)cy - y));
-#pragma unroll
-      for (int dt = 0; dt < 2; ++dt) {
-        const int ct = t0 + dt;
-        if (ct < 0 || ct >= bins) continue;
-        const float wt = 1.0f - fabsf((float)ct - tn);
-        atomicAdd(grid + ct * plane + (long long)cy * width + cx, wxy * wt);
-      }
+    for (int j = 0; j < kPerThread; ++j) {
+      const int e = blockIdx.x * kSlice + j * kThreads + threadIdx.x;
+      const bool in = e < k;
+      const long long s = base + (in ? e : 0);
+      ok[j] = in && valid[s];
+      x[j] = xs[s];
+      y[j] = ys[s];
+      t[j] = ts[s];
+      p[j] = ps ? ps[s] : 0.0f;
     }
   }
+};
+
+// (a) Grid (ceil(k / kSlice), nw). tkeys[2w] gets the key of window w's
+// last valid time, tkeys[2w + 1] the complemented key of its first; both
+// and the counts start at 0.
+__global__ void __launch_bounds__(kThreads)
+bin_count(const float* __restrict__ xs, const float* __restrict__ ys,
+          const float* __restrict__ ts, const uint8_t* __restrict__ valid,
+          int* __restrict__ counts, unsigned int* __restrict__ tkeys, int k,
+          int slots, int height, int width, int row_shift, int col_shift,
+          int tiles_x) {
+  extern __shared__ int hist[];  // slots
+  __shared__ float wmin[kWarps], wmax[kWarps];
+  const int w = blockIdx.y;
+  RawEvents ev;
+  ev.load(xs, ys, ts, nullptr, valid, (long long)w * k, k);
+  for (int i = threadIdx.x; i < slots; i += kThreads) hist[i] = 0;
+  __syncthreads();
+  float tmin = __int_as_float(0x7f800000), tmax = -tmin;  // +inf, -inf
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    if (!ev.ok[j]) continue;
+    tmin = fminf(tmin, ev.t[j]);
+    tmax = fmaxf(tmax, ev.t[j]);
+    const int slot = event_slot(ev.x[j], ev.y[j], height, width, row_shift,
+                                col_shift, tiles_x);
+    if (slot >= 0) atomicAdd(&hist[slot], 1);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    tmin = fminf(tmin, __shfl_xor_sync(0xffffffffu, tmin, o));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    wmin[threadIdx.x >> 5] = tmin;
+    wmax[threadIdx.x >> 5] = tmax;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kWarps; ++i) {
+      tmin = fminf(tmin, wmin[i]);
+      tmax = fmaxf(tmax, wmax[i]);
+    }
+    if (tmin <= tmax) {  // the block saw a valid event
+      atomicMax(&tkeys[2 * w], float_key(tmax));
+      atomicMax(&tkeys[2 * w + 1], ~float_key(tmin));
+    }
+  }
+  int* wcounts = counts + (long long)w * slots;
+  for (int i = threadIdx.x; i < slots; i += kThreads)
+    if (hist[i]) atomicAdd(&wcounts[i], hist[i]);
+}
+
+// out[i] = base + sum of in[:i] for i < n, over the whole block; each
+// thread sums a contiguous run of ceil(n / kThreads). Ends synchronized.
+__device__ __forceinline__ void block_exclusive_scan(
+    const int* __restrict__ in, long long* out, int n, long long base,
+    long long* warp_sums) {
+  const int per = (n + kThreads - 1) / kThreads;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  long long own = 0;
+  for (int i = lo; i < hi; ++i) own += in[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  long long incl = own;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  long long run = base + incl - own;
+  for (int i = 0; i < warp; ++i) run += warp_sums[i];
+  for (int i = lo; i < hi; ++i) {
+    out[i] = run;
+    run += in[i];
+  }
+  __syncthreads();
+}
+
+// (b) Grid (ceil(k / kSlice), nw): each kept event's (x, y, tn, v) to its
+// slot's run. A window's runs are laid out in slot order from w * k (a
+// window keeps at most its k events), so every block of the window
+// computes the window's offsets from the counts itself and the first one
+// writes them out. A block ranks its events per slot in shared memory and
+// reserves each slot's part of the run with one atomic on the cursor
+// (zero on entry).
+__global__ void __launch_bounds__(kThreads)
+bin_scatter(const float* __restrict__ xs, const float* __restrict__ ys,
+            const float* __restrict__ ps, const float* __restrict__ ts,
+            const uint8_t* __restrict__ valid,
+            const unsigned int* __restrict__ tkeys,
+            const int* __restrict__ counts, long long* __restrict__ offsets,
+            int* __restrict__ cursor, float4* __restrict__ binned, int k,
+            int slots, int bins, int height, int width, int row_shift,
+            int col_shift, int tiles_x) {
+  extern __shared__ long long run[];  // slots int64, then slots int
+  int* hist = reinterpret_cast<int*>(run + slots);
+  __shared__ long long warp_sums[kWarps];
+  const int w = blockIdx.y;
+  const long long wslot = (long long)w * slots;
+  RawEvents ev;
+  ev.load(xs, ys, ts, ps, valid, (long long)w * k, k);
+  for (int i = threadIdx.x; i < slots; i += kThreads) hist[i] = 0;
+  block_exclusive_scan(counts + wslot, run, slots, (long long)w * k,
+                       warp_sums);
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < slots; i += kThreads)
+      offsets[wslot + i] = run[i];
+  const float t_last = key_float(tkeys[2 * w]);
+  const float t_first = key_float(~tkeys[2 * w + 1]);
+  float dt = t_last - t_first;
+  dt = dt > 0.0f ? dt : 1.0f;
+  const float tb = (float)(bins - 1);
+  int packed[kPerThread];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int slot = ev.ok[j] ? event_slot(ev.x[j], ev.y[j], height, width,
+                                           row_shift, col_shift, tiles_x)
+                              : -1;
+    packed[j] =
+        slot < 0 ? -1 : (slot << kRankBits) | atomicAdd(&hist[slot], 1);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots; i += kThreads)
+    if (hist[i]) run[i] += atomicAdd(&cursor[wslot + i], hist[i]);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j)
+    if (packed[j] >= 0)
+      binned[run[packed[j] >> kRankBits] +
+             (packed[j] & ((1 << kRankBits) - 1))] =
+          make_float4(ev.x[j], ev.y[j], tb * (ev.t[j] - t_first) / dt,
+                      2.0f * ev.p[j] - 1.0f);
+}
+
+// Reads slot s of the binned events.
+struct BinnedReader {
+  const float4* __restrict__ ev;
+
+  __device__ __forceinline__ void load(long long s, float& x, float& y,
+                                       float& tn, float& v) const {
+    const float4 e = ev[s];
+    x = e.x;
+    y = e.y;
+    tn = e.z;
+    v = e.w;
+  }
+};
+
+// (c) Grid (tiles, nw): the tile-owner splat over the tile's own slots and
+// its neighbours' spills.
+__global__ void __launch_bounds__(kThreads)
+tri_tile_splat_binned(const float4* __restrict__ binned,
+                      const long long* __restrict__ offsets,
+                      const int* __restrict__ counts,
+                      float* __restrict__ out, int bins, int height,
+                      int width, int rows, int cols, int pitch, int tiles_x) {
+  extern __shared__ float4 dyn_smem[];
+  float* acc = reinterpret_cast<float*>(dyn_smem);
+  __shared__ tile_splat::Segs<4> segs;
+  const int w = blockIdx.y, tile_id = blockIdx.x;
+  const int tiles = gridDim.x;
+  const tile_splat::Tile tile =
+      tile_splat::tile_of(tile_id, rows, cols, tiles_x, height, width);
+  tile_splat::zero_tile(acc, bins * rows * pitch);
+  // threads 0-3 look up one source tile's run each, [first, last]
+  // category (tile_splat.SPILL_*): the own tile, left, upper, upper-left
+  __shared__ long long run_lo[4], run_hi[4];
+  if (threadIdx.x < 4) {
+    const int i = threadIdx.x;
+    const bool left = tile_id % tiles_x > 0, up = tile_id >= tiles_x;
+    const bool has = i == 0 || (i == 1 && left) || (i == 2 && up) ||
+                     (i == 3 && left && up);
+    const int src = tile_id - (i & 1) - (i >> 1) * tiles_x;
+    const int first = i == 0 ? 0 : i == 2 ? 1 : 2;
+    const int last = i < 2 ? 3 : 2;
+    const long long a = ((long long)w * tiles + src) * kCategories;
+    run_lo[i] = has ? offsets[a + first] : 0;
+    run_hi[i] = has ? offsets[a + last] + counts[a + last] : 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int4 box = make_int4(tile.c0, tile.c1, tile.r0, tile.r1);
+    int n = 0, len = 0;
+    for (int i = 0; i < 4; ++i) {
+      if (run_hi[i] <= run_lo[i]) continue;
+      segs.base[n] = run_lo[i];
+      segs.start[n] = len;
+      segs.box[n] = box;
+      len += (int)(run_hi[i] - run_lo[i]);
+      ++n;
+    }
+    segs.n = n;
+    segs.start[n] = len;
+  }
+  __syncthreads();
+  tile_splat::accumulate(acc, segs, BinnedReader{binned}, tile, bins,
+                         rows, pitch);
+  __syncthreads();
+  tile_splat::store_tile(acc, out + (long long)w * bins * height * width,
+                         tile, bins, rows, pitch, height, width);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -113,22 +373,64 @@ unsigned int blocks_for(long long n) {
 
 }  // namespace
 
-// Plain C entries for ctypes. Pointers are device pointers to nw * k f32
-// event slots each; out must hold nw * channels * height * width zeros
-// (channels = bins for K5; bins, or 2 * bins with separate_pol, for K6).
-// Each launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int voxelize_windows_trilinear(
-    const void* x, const void* y, const void* tn, const void* value,
-    void* out, int nw, int k, int bins, int height, int width,
-    void* stream) {
-  const long long n = (long long)nw * k;
-  if (n <= 0) return 0;
-  tri_splat_events<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (const float*)tn,
-      (const float*)value, (float*)out, n, k, bins, height, width);
+// Plain C entries for ctypes. Pointers are device pointers; each entry
+// launches on `stream` and returns the CUDA error (0 on success). The
+// geometry (rows, cols, pitch, tiles, tiles_x) and the shared-memory bytes
+// are the tile plan's (openess_tpu_torch/ops/tile_splat.py).
+//
+// K5's passes (a) and (b): x, y, p, t f32 and valid bool, nw * k slots
+// each; counts and cursor (slots_w * nw int32 each) and tkeys (2 * nw
+// uint32) zero on entry; offsets slots_w * nw int64; binned room for
+// nw * k float4. rows and cols are powers of two.
+extern "C" int bin_events_trilinear(
+    const void* x, const void* y, const void* p, const void* t,
+    const void* valid, void* counts, void* cursor, void* tkeys,
+    void* offsets, void* binned, int nw, int k, int bins, int height,
+    int width, int rows, int cols, int tiles_x, int slots_w, int count_smem,
+    int scatter_smem, void* stream) {
+  if (nw <= 0 || k <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((k + kSlice - 1) / kSlice, nw);
+  const int row_shift = __builtin_ctz(rows), col_shift = __builtin_ctz(cols);
+  static int allowed_count[64], allowed_scatter[64];
+  cudaError_t err =
+      tile_splat::allow_smem(bin_count, count_smem, allowed_count);
+  if (err == cudaSuccess)
+    err = tile_splat::allow_smem(bin_scatter, scatter_smem, allowed_scatter);
+  if (err != cudaSuccess) return (int)err;
+  bin_count<<<grid, kThreads, count_smem, st>>>(
+      (const float*)x, (const float*)y, (const float*)t,
+      (const uint8_t*)valid, (int*)counts, (unsigned int*)tkeys, k, slots_w,
+      height, width, row_shift, col_shift, tiles_x);
+  bin_scatter<<<grid, kThreads, scatter_smem, st>>>(
+      (const float*)x, (const float*)y, (const float*)p, (const float*)t,
+      (const uint8_t*)valid, (const unsigned int*)tkeys, (const int*)counts,
+      (long long*)offsets, (int*)cursor, (float4*)binned, k, slots_w, bins,
+      height, width, row_shift, col_shift, tiles_x);
   return (int)cudaGetLastError();
 }
 
+// K5's pass (c): out holds nw * bins * height * width floats, each written
+// once (no fill needed).
+extern "C" int splat_binned_trilinear(
+    const void* binned, const void* offsets, const void* counts, void* out,
+    int nw, int bins, int height, int width, int rows, int cols, int pitch,
+    int tiles, int tiles_x, int smem, void* stream) {
+  if (nw <= 0) return 0;
+  static int allowed[64];
+  cudaError_t err = tile_splat::allow_smem(tri_tile_splat_binned, smem,
+                                           allowed);
+  if (err != cudaSuccess) return (int)err;
+  tri_tile_splat_binned<<<dim3(tiles, nw), kThreads, smem,
+                          (cudaStream_t)stream>>>(
+      (const float4*)binned, (const long long*)offsets, (const int*)counts,
+      (float*)out, bins, height, width, rows, cols, pitch, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// K6: pointers to nw * k prepared f32 event slots each; out must hold
+// nw * channels * height * width zeros (channels = bins, or 2 * bins with
+// separate_pol).
 extern "C" int voxelize_windows_bilinear_t(
     const void* x, const void* y, const void* tn, const void* pol,
     void* out, int nw, int k, int bins, int separate_pol, int height,

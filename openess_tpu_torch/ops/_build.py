@@ -4,9 +4,11 @@ Each source compiles on its own into a shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), loaded with
 ``ctypes``. Every C entry takes its arguments, then the CUDA stream, and
 returns a ``cudaError_t``; :func:`entry` binds one, :func:`launch` calls it
-on the current stream and raises on an error. Libraries go to ``openess_tpu_torch/_build/``, named by a hash
-of the source and the flags, so an edited source is never served from a
-stale build. The build runs at first use, in the process that launches the
+on the current stream and raises on an error. Libraries go to
+``openess_tpu_torch/_build/``, named by a hash of the source, the headers
+under ``csrc/`` it includes (``#include "..."``, followed through headers)
+and the flags, so an edited source or header is never served from a stale
+build. Each source is its own library. The build runs at first use, in the process that launches the
 kernel; nothing is built when a module is imported.
 """
 from __future__ import annotations
@@ -15,6 +17,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,10 +50,30 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[str]:
+    """``csrc/<source>`` and the headers under ``csrc/`` that it includes,
+    directly or through another header, each once, in include order."""
+    seen, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        path = os.path.join(CSRC_DIR, name)
+        if name in seen or not os.path.isfile(path):
+            continue
+        seen.append(name)
+        with open(path, "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def library_path(source: str) -> str:
     """Where the library for ``csrc/<source>`` lives once built."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _sources(source):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:16]}.so")
 
@@ -64,7 +87,8 @@ def build(source: str) -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           os.path.join(CSRC_DIR, source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     with open(os.path.splitext(out)[0] + ".log", "w") as f:
         f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

@@ -10,11 +10,13 @@ located by a packed ``r0 | c0 << 16`` descriptor.
 
 Device half: :func:`voxelize_chunked_trilinear` splats the wire into
 ``[NW, bins, H, W]`` f32 grids. On a CUDA tensor it launches the K1 kernel
-(``csrc/voxelize_chunked.cu``, replacing the TPU kernel ``_tri_kernel``);
-on a CPU tensor it runs :func:`voxelize_chunked_trilinear_plain`, the same
-dequantization and the same 8 corners through ``index_put_``. Both are
-exact f32 splats: the TPU kernel's bf16 multiplicands (about 5e-3 of the
-grid max) are not reproduced.
+(``csrc/voxelize_chunked.cu``, replacing the TPU kernel ``_tri_kernel``), a
+tile-owner splat that writes every cell of the grid once, so the grid is a
+``torch.empty`` (``ops/tile_splat.py`` plans its tiles); on a CPU tensor it
+runs :func:`voxelize_chunked_trilinear_plain`, the same dequantization and
+the same 8 corners through ``index_put_``. Both are exact f32 splats: the
+TPU kernel's bf16 multiplicands (about 5e-3 of the grid max) are not
+reproduced.
 
 :func:`voxelize_chunked_bilinear_t` is the DDD17 counterpart: integer
 pixels, weights ``1 - dts`` and ``dts`` into time bins ``ti`` and ``ti + 1``,
@@ -31,6 +33,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from openess_tpu_torch.ops.tile_splat import TilePlan, tile_plan
 
 FIXED_POINT = 32          # coord fixed-point scale (1/32 px)
 TILE_ROWS = 16            # image rows per chunk tile
@@ -327,8 +331,8 @@ def voxelize_chunked_trilinear_plain(
 
 def _launch(name: str, wire, grid, *ints):
     """Check the CUDA wire and launch the C entry ``name`` of
-    ``csrc/voxelize_chunked.cu`` on the current stream into the zero-filled
-    ``grid``: 8 device pointers, ``ints`` and the ``t16`` flag."""
+    ``csrc/voxelize_chunked.cu`` on the current stream into ``grid``: 8
+    device pointers, ``ints`` and the ``t16`` flag."""
     from openess_tpu_torch.ops import _build
 
     _check_wire(*wire)
@@ -338,6 +342,31 @@ def _launch(name: str, wire, grid, *ints):
                       *[ctypes.c_int] * (len(ints) + 1))
     _build.launch(fn, grid.device, *(a.data_ptr() for a in wire),
                   grid.data_ptr(), *ints, int(wire[3].dtype == torch.uint16))
+
+
+def voxelize_chunked_trilinear_into(grid, xq, yq, pq, t_rel, counts,
+                                    tile_r0, t_range, *,
+                                    plan: TilePlan | None = None) -> None:
+    """Launch the K1 kernel on a CUDA wire into ``grid``, a contiguous f32
+    ``[NW, bins, H, W]`` on the wire's card, whatever it holds: the
+    tile-owner splat writes every cell once. What
+    :func:`voxelize_chunked_trilinear` runs on a CUDA wire, with the tile
+    of ``tile_plan`` unless ``plan`` gives another; a call here is not
+    counted as a launch of K1."""
+    nw, bins, height, width = grid.shape
+    if (grid.dtype != torch.float32 or not grid.is_contiguous()
+            or grid.device != xq.device or nw != xq.shape[0]):
+        raise ValueError("grid must be a contiguous f32 [NW, bins, H, W] "
+                         "beside the wire")
+    h_pad, w_pad = padded_grid(height, width)
+    plan = plan or tile_plan(bins, height, width)
+    _launch(
+        "voxelize_chunked_trilinear",
+        (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
+        nw, xq.shape[1], xq.shape[2], bins, height, width,
+        h_pad - _ROWS_TRI, w_pad - _COLS_TRI, plan.rows, plan.cols,
+        plan.pitch, plan.tiles, plan.tiles_x, plan.smem_bytes,
+    )
 
 
 def voxelize_chunked_trilinear(
@@ -352,8 +381,8 @@ def voxelize_chunked_trilinear(
     Returns ``[NW, num_bins, height, width]`` f32; ``normalize`` applies
     the unbiased nonzero normalization per window.
 
-    A CUDA wire launches the K1 kernel and counts the launch in
-    ``voxelize_chunked_trilinear.launches``; a CPU wire runs
+    A CUDA wire launches the K1 kernel (the tile-owner splat) and counts
+    the launch in ``voxelize_chunked_trilinear.launches``; a CPU wire runs
     :func:`voxelize_chunked_trilinear_plain`.
     """
     dev = xq.device
@@ -363,17 +392,11 @@ def voxelize_chunked_trilinear(
             num_bins=num_bins, height=height, width=width,
         )
     elif dev.type == "cuda":
-        nw, nbc, e = xq.shape
-        h_pad, w_pad = padded_grid(height, width)
-        grid = torch.zeros(
-            (nw, num_bins, height, width), dtype=torch.float32, device=dev
-        )
-        _launch(
-            "voxelize_chunked_trilinear",
-            (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
-            nw, nbc, e, num_bins, height, width,
-            h_pad - _ROWS_TRI, w_pad - _COLS_TRI,
-        )
+        # every cell is written once by the tile that owns it: no fill
+        grid = torch.empty((xq.shape[0], num_bins, height, width),
+                           dtype=torch.float32, device=dev)
+        voxelize_chunked_trilinear_into(
+            grid, xq, yq, pq, t_rel, counts, tile_r0, t_range)
         voxelize_chunked_trilinear.launches += 1
     else:
         raise ValueError(f"unsupported device for K1: {dev}")

@@ -4,17 +4,24 @@ under the same function names and contracts.
 
 Each takes flat ``[num_windows * K]`` padded events (``x, y, p, t`` and a
 bool ``valid``) and returns the per-window grids ``[num_windows * Cout, H,
-W]`` f32. On a CUDA tensor the wrapper prepares the events as the JAX
-wrapper does around its ``pallas_call`` (per-window time normalization over
-the valid events; padding routed out of every corner) and launches its
-kernel from ``csrc/voxelize_grid.cu``, counting the launch in
-``.launches``. On a CPU tensor it runs its plain version, the exact scatter
+W]`` f32. On a CUDA tensor the wrapper launches its kernels from
+``csrc/voxelize_grid.cu``, counting one launch of the voxelizer in
+``.launches``; on a CPU tensor it runs its plain version, the exact scatter
 of ``ops/voxelize.py``. Any other device raises.
 
+K5 reads the raw events: its passes bin them by output tile on the card
+(:func:`bin_events_trilinear`, held to :func:`bin_events_trilinear_plain`)
+and a tile-owner splat writes every cell of the grid once
+(:func:`splat_binned_trilinear_plain` is that splat in PyTorch). K6's
+wrapper prepares the events as the JAX wrapper does around its
+``pallas_call`` (per-window time normalization over the valid events;
+padding routed out of every corner) and scatters them into a zero-filled
+grid.
+
 The TPU kernels multiply one-hot matrices in bf16 on the matrix unit; the
-port's kernels scatter in exact f32, as K1 and K4 do. They differ from the
+port's kernels splat in exact f32, as K1 and K4 do. They differ from the
 TPU kernels by that rounding (about 5e-3 of the grid max) and from the
-plain versions by the order of the f32 atomics only.
+plain versions by the order of the f32 sums only.
 """
 from __future__ import annotations
 
@@ -22,6 +29,12 @@ import ctypes
 
 import torch
 
+from openess_tpu_torch.ops.tile_splat import (
+    TilePlan,
+    event_slots,
+    reader_tiles,
+    tile_plan,
+)
 from openess_tpu_torch.ops.voxelize import (
     _normalized_times,
     voxel_grid_bilinear_t,
@@ -47,33 +60,155 @@ def _check_events(x, y, p, t, valid, num_windows: int) -> int:
     return n // num_windows
 
 
-def _launch(name: str, events, grid, *ints):
+def _launch(name: str, tensors, device, *ints):
     """Launch the C entry ``name`` of ``csrc/voxelize_grid.cu`` on the
-    current stream over the four prepared ``[nw, k]`` f32 event arrays into
-    the zero-filled ``grid``."""
+    current stream of ``device``: the tensors' device pointers, then
+    ``ints``."""
     from openess_tpu_torch.ops import _build
 
-    if not all(a.dtype == torch.float32 and a.is_contiguous()
-               for a in events):
-        raise ValueError("prepared events must be contiguous f32")
-    fn = _build.entry("voxelize_grid.cu", name, *[ctypes.c_void_p] * 5,
+    fn = _build.entry("voxelize_grid.cu", name,
+                      *[ctypes.c_void_p] * len(tensors),
                       *[ctypes.c_int] * len(ints))
-    _build.launch(fn, grid.device, *(a.data_ptr() for a in events),
-                  grid.data_ptr(), *ints)
+    _build.launch(fn, device, *(a.data_ptr() for a in tensors), *ints)
 
 
-def trilinear_events(x, y, p, t, valid, num_windows: int, num_bins: int):
-    """The four ``[num_windows, K]`` f32 arrays K5 reads, made as the JAX
-    wrapper makes them before its ``pallas_call``: ``x, y``, the normalized
-    time and the value ``2p - 1``, padding carrying value 0 and the ``PAD``
-    marker, outside every corner window."""
-    nw, C = num_windows, num_bins
+def _raw_events(x, y, p, t, valid):
+    """The raw events as K5's passes read them: contiguous f32 ``x, y, p,
+    t`` (cast where they are not) and the bool ``valid``."""
+    return (*(a.to(torch.float32).contiguous() for a in (x, y, p, t)),
+            valid.contiguous())
+
+
+def bin_events_trilinear_plain(x, y, p, t, valid, *, num_windows: int,
+                               plan: TilePlan):
+    """K5's binning passes (count, scatter) in PyTorch, the function the
+    card's passes are held to.
+
+    Returns ``(counts, offsets, binned)``: int32 events per slot, a slot
+    being ``(window, home tile, category)`` in that order
+    (``ops/tile_splat.event_slots``); each slot's int64 start in
+    ``binned``, window ``w``'s runs following each other in slot order
+    from ``w * K``; and ``binned``, ``[num_windows * K, 4]`` f32, whose
+    runs hold the kept events' ``(x, y, tn, v)``. ``tn`` is the window's
+    time normalization over its valid events, ``v = 2p - 1``; padding and
+    events with no corner in the frame are dropped. Rows outside the runs
+    are zero here and undefined on the card; within a run the card's order
+    is any order, here it is the events' own."""
+    nw = num_windows
     vs = valid.reshape(nw, -1)
-    tn = _normalized_times(t.reshape(nw, -1), vs, C, positive_dt=True)
-    value = torch.where(vs, 2.0 * p.float().reshape(nw, -1) - 1.0, 0.0)
-    return (torch.where(vs, x.float().reshape(nw, -1), PAD),
-            torch.where(vs, y.float().reshape(nw, -1), PAD),
-            torch.where(vs, tn, PAD), value)
+    k = vs.shape[1]
+    xs, ys = x.float().reshape(nw, -1), y.float().reshape(nw, -1)
+    tn = _normalized_times(t.reshape(nw, -1), vs, plan.bins, positive_dt=True)
+    v = 2.0 * p.float().reshape(nw, -1) - 1.0
+    slot, keep = event_slots(xs, ys, plan)
+    keep &= vs
+    win = torch.arange(nw, device=x.device)[:, None]
+    slot = (win * plan.slots_per_window + slot)[keep].long()
+    counts = torch.bincount(slot, minlength=plan.slots(nw)).int()
+    per_window = counts.view(nw, -1).long()
+    offsets = (torch.cumsum(per_window, 1) - per_window
+               + torch.arange(nw, device=x.device)[:, None] * k).reshape(-1)
+    order = torch.argsort(slot, stable=True)
+    binned = torch.zeros((nw * k, 4), dtype=torch.float32, device=x.device)
+    binned[binned_rows(counts, offsets)[0]] = \
+        torch.stack((xs, ys, tn, v), -1)[keep][order]
+    return counts, offsets, binned
+
+
+def binned_rows(counts, offsets):
+    """The rows of ``binned`` that hold events, run by run in slot order,
+    and each row's slot: ``(rows, slots)`` int64."""
+    c = counts.long()
+    slots = torch.repeat_interleave(
+        torch.arange(c.numel(), device=c.device), c)
+    start = torch.cumsum(c, 0) - c
+    rows = offsets[slots] + torch.arange(slots.numel(), device=c.device) \
+        - start[slots]
+    return rows, slots
+
+
+def splat_binned_trilinear_plain(counts, offsets, binned, *,
+                                 num_windows: int,
+                                 plan: TilePlan) -> torch.Tensor:
+    """K5's splat pass in PyTorch: every tile adds, of the events binned at
+    its own slots and at its neighbours' spill categories
+    (``ops/tile_splat.reader_tiles``), the corners inside the tile. Returns
+    ``[num_windows * bins, H, W]`` f32."""
+    C, H, W = plan.bins, plan.height, plan.width
+    rows, slot = binned_rows(counts, offsets)
+    win, slot = slot // plan.slots_per_window, slot % plan.slots_per_window
+    x, y, tn, v = binned[rows].unbind(-1)
+    x0, y0, t0 = x.int(), y.int(), tn.int()  # trunc toward zero
+    out = torch.zeros(num_windows * C * H * W, device=binned.device)
+    for tile, reads in reader_tiles(slot, plan):
+        ty, tx = tile // plan.tiles_x, tile % plan.tiles_x
+        r0, c0 = ty * plan.rows, tx * plan.cols
+        r1 = torch.clamp(r0 + plan.rows, max=H)
+        c1 = torch.clamp(c0 + plan.cols, max=W)
+        for dx in (0, 1):
+            cx = x0 + dx
+            wx = v * (1.0 - torch.abs(cx.float() - x))
+            for dy in (0, 1):
+                cy = y0 + dy
+                wxy = wx * (1.0 - torch.abs(cy.float() - y))
+                for dt in (0, 1):
+                    ct = t0 + dt
+                    ok = (reads & (cx >= c0) & (cx < c1) & (cy >= r0)
+                          & (cy < r1) & (ct >= 0) & (ct < C))
+                    wt = 1.0 - torch.abs(ct.float() - tn)
+                    idx = ((win * C + ct) * H + cy) * W + cx
+                    out.index_put_((idx[ok].long(),), (wxy * wt)[ok],
+                                   accumulate=True)
+    return out.view(num_windows * C, H, W)
+
+
+def splat_binned_trilinear(counts, offsets, binned, grid, *,
+                           num_windows: int, plan: TilePlan) -> None:
+    """K5's splat pass on the card: the binned events into ``grid``, a
+    contiguous f32 ``[num_windows * bins, H, W]`` on their card, whatever it
+    holds (the tile-owner splat writes every cell once). A call here is not
+    counted as a launch of K5."""
+    if (grid.dtype != torch.float32 or not grid.is_contiguous()
+            or tuple(grid.shape) != (num_windows * plan.bins, plan.height,
+                                     plan.width)):
+        raise ValueError("grid must be a contiguous f32 [NW * bins, H, W]")
+    _launch("splat_binned_trilinear", (binned, offsets, counts, grid),
+            grid.device, num_windows, plan.bins, plan.height, plan.width,
+            plan.rows, plan.cols, plan.pitch, plan.tiles, plan.tiles_x,
+            plan.smem_bytes)
+
+
+def bin_events_trilinear(x, y, p, t, valid, *, num_windows: int,
+                         num_bins: int, height: int, width: int,
+                         plan: TilePlan | None = None):
+    """K5's binning: ``(counts, offsets, binned)`` as
+    :func:`bin_events_trilinear_plain` returns them, for the tiles of
+    ``tile_plan`` unless ``plan`` gives others. A CUDA tensor runs the
+    card's count and scatter passes; a CPU tensor the plain version. Not
+    counted as a launch of K5: :func:`voxelize_windows_trilinear_mxu` is."""
+    nw = num_windows
+    k = _check_events(x, y, p, t, valid, nw)
+    plan = plan or tile_plan(num_bins, height, width)
+    dev = x.device
+    if dev.type == "cpu":
+        return bin_events_trilinear_plain(x, y, p, t, valid, num_windows=nw,
+                                          plan=plan)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device for K5: {dev}")
+    slots = plan.slots(nw)
+    # the counts, the scatter's cursors and the windows' time keys start at
+    # zero: 0.8 MB at DSEC's 160 windows, one fill
+    scratch = torch.zeros(2 * slots + 2 * nw, dtype=torch.int32, device=dev)
+    counts = scratch[:slots]
+    offsets = torch.empty(slots, dtype=torch.int64, device=dev)
+    binned = torch.empty((nw * k, 4), dtype=torch.float32, device=dev)
+    _launch("bin_events_trilinear",
+            (*_raw_events(x, y, p, t, valid), counts, scratch[slots:2 * slots],
+             scratch[2 * slots:], offsets, binned),
+            dev, nw, k, num_bins, height, width, plan.rows, plan.cols,
+            plan.tiles_x, plan.slots_per_window, plan.count_smem_bytes,
+            plan.scatter_smem_bytes)
+    return counts, offsets, binned
 
 
 def bilinear_t_events(x, y, p, t, valid, num_windows: int, num_bins: int,
@@ -103,21 +238,25 @@ def voxelize_windows_trilinear_mxu(x, y, p, t, valid, *, num_windows: int,
     each flat ``[num_windows * K]``. Returns ``[num_windows * num_bins, H,
     W]`` f32, the layout of ``voxelize_windows_trilinear``.
 
-    A CUDA tensor launches K5 and counts it in
-    ``voxelize_windows_trilinear_mxu.launches``; a CPU tensor runs the
-    plain version :func:`ops.voxelize.voxelize_windows_trilinear`.
+    A CUDA tensor launches K5, the binning passes and the tile-owner
+    splat, which writes every cell once (the grid is a ``torch.empty``),
+    and counts one launch in ``voxelize_windows_trilinear_mxu.launches``; a
+    CPU tensor runs the plain version
+    :func:`ops.voxelize.voxelize_windows_trilinear`.
     """
     nw, C, H, W = num_windows, num_bins, height, width
-    k = _check_events(x, y, p, t, valid, nw)
+    _check_events(x, y, p, t, valid, nw)
     dev = x.device
     if dev.type == "cpu":
         return voxelize_windows_trilinear(
             x, y, p, t, valid, num_windows=nw, num_bins=C, height=H, width=W)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device for K5: {dev}")
-    grid = torch.zeros((nw * C, H, W), dtype=torch.float32, device=dev)
-    _launch("voxelize_windows_trilinear",
-            trilinear_events(x, y, p, t, valid, nw, C), grid, nw, k, C, H, W)
+    binning = bin_events_trilinear(
+        x, y, p, t, valid, num_windows=nw, num_bins=C, height=H, width=W)
+    grid = torch.empty((nw * C, H, W), dtype=torch.float32, device=dev)
+    splat_binned_trilinear(*binning, grid, num_windows=nw,
+                           plan=tile_plan(C, H, W))
     voxelize_windows_trilinear_mxu.launches += 1
     return grid
 
@@ -157,8 +296,8 @@ def voxelize_windows_bilinear_t_mxu(x, y, p, t, valid, *, num_windows: int,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device for K6: {dev}")
     grid = torch.zeros((nw * cout, H, W), dtype=torch.float32, device=dev)
-    _launch("voxelize_windows_bilinear_t",
-            bilinear_t_events(x, y, p, t, valid, nw, C, H, W), grid,
+    events = bilinear_t_events(x, y, p, t, valid, nw, C, H, W)
+    _launch("voxelize_windows_bilinear_t", (*events, grid), dev,
             nw, k, C, int(separate_pol), H, W)
     voxelize_windows_bilinear_t_mxu.launches += 1
     return grid

@@ -131,6 +131,26 @@ _NOT_PORTED = {
 }
 
 
+def refuse_unported_mesh(s: Settings, device=None) -> None:
+    """The ``tpu.mesh_*`` settings the port cannot honour raise, as the JAX
+    package asserts ``data x model <= devices`` (``parallel/mesh.py``) and
+    shards: model parallelism at all, and more data shards than devices
+    (CUDA devices, or 1 on the CPU). The shipped ``-1`` (every device) and
+    ``1`` pass; the port then trains on the one device it is given."""
+    item = "ROADMAP Queue 1 item 12 (multi-device)"
+    if s.mesh_model > 1:
+        raise NotImplementedError(
+            f"tpu.mesh_model {s.mesh_model}: model parallelism is not "
+            f"ported yet: {item}")
+    dev = torch.device("cuda" if device is None else device)
+    devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    if s.mesh_data > devices:
+        raise NotImplementedError(
+            f"tpu.mesh_data {s.mesh_data} is more than the {devices} "
+            f"{dev.type} device(s) here, and data parallelism is not ported "
+            f"yet: {item}")
+
+
 def e2vid_trains(s: Settings) -> bool:
     """Whether E2VID's parameters train: only a fine-tune with
     ``unfrozen_e2vid``."""
@@ -142,7 +162,7 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
     """The modules of the configured workload on ``device`` (CUDA unless
     asked otherwise), seeded. Ported: pretrain, ``sup_only``, ``finetune``
     and ``linear_probe`` on the voxel options (``frame2voxel`` /
-    ``recon2voxel``); anything else
+    ``recon2voxel``); anything else, and ``tpu.e2vid_s2d``,
     raises ``NotImplementedError`` naming the ROADMAP item that brings it.
     ``event_path_only`` leaves out the teacher (a server needs only
     ``front_sensor_b`` and ``back_end``, which come out the same)."""
@@ -152,6 +172,10 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
         raise NotImplementedError(
             f"task {task!r} is not ported yet: {_NOT_PORTED[task]}"
         )
+    if s.e2vid_s2d:
+        raise NotImplementedError(
+            "tpu.e2vid_s2d: E2VID's space-to-depth form is not ported yet: "
+            "ROADMAP Queue 1 item 10 (the tpu.e2vid_s2d knob)")
     if opt not in VOXEL_OPTIONS:
         raise NotImplementedError(
             f"config_option {opt!r} needs the DeepLabV3 student, which is "

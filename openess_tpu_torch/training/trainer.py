@@ -19,7 +19,10 @@ import torch
 from openess_tpu_torch.config.settings import Settings
 from openess_tpu_torch.metrics import MetricsSemseg
 from openess_tpu_torch.training import checkpoint as ckpt
-from openess_tpu_torch.training.build import build_models
+from openess_tpu_torch.training.build import (
+    build_models,
+    refuse_unported_mesh,
+)
 from openess_tpu_torch.training.optim import make_optimizer
 from openess_tpu_torch.training.steps import StepBuilder
 
@@ -65,6 +68,7 @@ class Trainer:
         seed = settings.seed if seed is None else seed
         self.np_rng = np.random.default_rng(seed)
 
+        refuse_unported_mesh(settings, device)
         self.mset = build_models(settings, seed=seed, device=device)
         self.device = self.mset.device
         self.steps_per_epoch = max(

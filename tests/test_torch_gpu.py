@@ -13,6 +13,7 @@ from openess_tpu_torch.ops import lstm_gates as k3
 from openess_tpu_torch.ops import segment_pool as k2
 from openess_tpu_torch.ops import voxelize_chunked as k1
 from openess_tpu_torch.ops import voxelize_mxu as k56
+from openess_tpu_torch.ops.tile_splat import tile_plan
 from openess_tpu_torch.ops.voxelize import (
     voxel_grid_bilinear_t,
     voxelize_windows_trilinear,
@@ -238,6 +239,105 @@ def test_k4_kernel_matches_plain(cuda, t16, hw, separate_pol):
     assert got.shape == (3, 10 if separate_pol else 5, H, W)
     assert ref.abs().max() > 0
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _k1_edge_wire(rng, case, t16):
+    """A K1 wire for one edge case, with its frame ``(H, W)``: chunks
+    shuffled along the chunk axis, malformed and unaligned descriptors,
+    all-padding chunks (``counts == 0``) past the 256 a block reads at a
+    time, an empty window, a ragged 100x150 synthetic frame, or 16-event
+    chunks, so that one tile meets more than 256 of them."""
+    H, W = (100, 150) if case == "ragged" else (48, 96)
+    chunk = 16 if case == "many_chunks" else 256
+    x = rng.uniform(-1.5, W + 0.5, (3, 5000)).astype(np.float32)
+    y = rng.uniform(-1.5, H + 0.5, (3, 5000)).astype(np.float32)
+    p = rng.integers(0, 2, (3, 5000)).astype(np.float32)
+    t = np.sort(rng.uniform(0, 1e6, (3, 5000)), axis=1)
+    wire = list(k1.chunk_events_batch(x, y, p, t, rng.random((3, 5000)) < .9,
+                                      height=H, width=W, chunk=chunk,
+                                      t16=t16))
+    nbc = wire[0].shape[1]
+    if case == "shuffled":
+        for w in range(3):
+            perm = rng.permutation(nbc)
+            for a in wire[:6]:
+                a[w] = a[w][perm]
+    elif case == "malformed":
+        h_pad, w_pad = k1.padded_grid(H, W)
+        r0 = rng.integers(-20, h_pad + 20, (3, nbc))
+        c0 = rng.integers(-20, w_pad + 20, (3, nbc))
+        wire[5] = ((r0 & 0xFFFF) | (c0 << 16)).astype(np.int32)
+    elif case == "padding_chunks":
+        wire = list(k1.pad_wire_chunks(tuple(wire), 300))
+    elif case == "empty_window":
+        wire[4][1] = 0
+    return tuple(wire), H, W
+
+
+@pytest.mark.parametrize("t16", [False, True])
+@pytest.mark.parametrize("case", ["shuffled", "malformed", "padding_chunks",
+                                  "empty_window", "ragged", "many_chunks"])
+def test_k1_tile_splat_edge_cases(cuda, case, t16):
+    """K1 against its plain version on the wires a tile owner must not
+    assume away, through its wrapper and launched into a NaN-filled grid:
+    every cell is written, a tile that no event touches too."""
+    wire, H, W = _k1_edge_wire(np.random.default_rng(1205), case, t16)
+    wire = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in wire)
+    kw = dict(num_bins=5, height=H, width=W)
+    ref = k1.voxelize_chunked_trilinear_plain(*wire, **kw)
+    got = k1.voxelize_chunked_trilinear(*wire, **kw)
+    nan = torch.full_like(ref, float("nan"))
+    before = k1.voxelize_chunked_trilinear.launches
+    k1.voxelize_chunked_trilinear_into(nan, *wire)
+    torch.cuda.synchronize()
+    assert k1.voxelize_chunked_trilinear.launches == before
+    assert ref.abs().max() > 0
+    for out in (got, nan):
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if case == "empty_window":
+        assert not got[1].any() and not nan[1].any()
+
+
+def _sorted_within_slots(counts, offsets, binned):
+    """The binned events of every run, ordered by slot, then by (x, y, tn,
+    v): the card fills each run in any order."""
+    rows, slot = k56.binned_rows(counts, offsets)
+    b = binned[rows]
+    order = torch.arange(rows.numel(), device=b.device)
+    for col in (3, 2, 1, 0):
+        order = order[torch.sort(b[order, col], stable=True).indices]
+    order = order[torch.sort(slot[order], stable=True).indices]
+    return b[order]
+
+
+@pytest.mark.parametrize("hw,nw", [((48, 96), 3), ((100, 150), 3),
+                                   ((480, 640), 8)])
+def test_k5_binning_and_splat_match_plain(cuda, hw, nw):
+    """K5's passes on the card: the counts and offsets exactly, each slot's
+    events as a multiset, and the splat into a NaN-filled grid against the
+    exact scatter (1e-5 of the max)."""
+    H, W = hw
+    k = 3000
+    ev = tuple(a.to(cuda) for a in _grid_events(
+        np.random.default_rng(1205), nw, k, H, W, "edges", False))
+    plan = tile_plan(5, H, W)
+    kw = dict(num_windows=nw, num_bins=5, height=H, width=W)
+    counts, offsets, binned = k56.bin_events_trilinear(*ev, **kw)
+    pc, po, pb = k56.bin_events_trilinear_plain(*ev, num_windows=nw,
+                                                plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, pc) and torch.equal(offsets, po)
+    assert torch.equal(_sorted_within_slots(counts, offsets, binned),
+                       _sorted_within_slots(pc, po, pb))
+    grid = torch.full((nw * 5, H, W), float("nan"), device=cuda)
+    k56.splat_binned_trilinear(counts, offsets, binned, grid,
+                               num_windows=nw, plan=plan)
+    ref = voxelize_windows_trilinear(*ev, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grid).all() and not grid[:5].any()
+    assert (grid - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def _grid_events(rng, nw, k, H, W, case, integer):

@@ -75,12 +75,10 @@ def test_no_jax_or_jax_package_in_source(path):
     assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
 
 
-CONFIGS = [
-    "configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml",
-    "configs/pretrain/DDD17/frame2voxel_fcclip_sam.yaml",
-    "configs/linear_probe/DSEC/frame2recon_fcclip_slic.yaml",
-    "configs/synthetic_sup_only.yaml",
-]
+FLAGSHIP = "configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml"
+# every shipped YAML
+CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
+    os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 
 
 @pytest.mark.parametrize("cfg", CONFIGS)
@@ -109,7 +107,7 @@ def test_chip_smoke_settings_are_the_flagship_yaml():
     import chip_smoke
     from openess_tpu_torch.config.settings import load_settings
 
-    ref = load_settings(os.path.join(ROOT, CONFIGS[0]))
+    ref = load_settings(os.path.join(ROOT, FLAGSHIP))
     got = chip_smoke.flagship_settings()
     for f in dataclasses.fields(ref):
         if f.name in ("logger", "semseg_color_map"):
@@ -168,14 +166,16 @@ def test_kernel_sources_are_in_the_package():
     """Each CUDA kernel's source is a file of the package (built at first
     use from there), its C entries are there, and its wrapper names it;
     K1 and K4 share a source, as K5 and K6 do, and K3's forward and
-    backward. No Triton kernel is left: the port needs no ``triton``."""
+    backward; K1 and K5 include the tile-owner splat's header. No Triton
+    kernel is left: the port needs no ``triton``."""
     entries = {
         "voxelize_chunked.cu": ("ops/voxelize_chunked.py",
                                 ("voxelize_chunked_trilinear",
                                  "voxelize_chunked_bilinear_t")),
         "segment_pool.cu": ("ops/segment_pool.py", ()),
         "voxelize_grid.cu": ("ops/voxelize_mxu.py",
-                             ("voxelize_windows_trilinear",
+                             ("bin_events_trilinear",
+                              "splat_binned_trilinear",
                               "voxelize_windows_bilinear_t")),
         "lstm_gates.cu": ("ops/lstm_gates.py",
                           ("lstm_gates_forward", "lstm_gates_backward")),
@@ -187,6 +187,9 @@ def test_kernel_sources_are_in_the_package():
             assert f'extern "C" int {entry}(' in cu
         with open(os.path.join(PORT, wrapper)) as f:
             assert f'_build.entry("{source}"' in f.read()
+    for source in ("voxelize_chunked.cu", "voxelize_grid.cu"):
+        with open(os.path.join(PORT, "csrc", source)) as f:
+            assert '#include "tile_splat.cuh"' in f.read()
     for path in _port_files():
         with open(path) as f:
             text = f.read()

@@ -28,6 +28,7 @@ Tolerances, with what was measured:
 - Eval: loss 1e-5 relative, argmax agreement >= 99.9 %.
 """
 import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -50,6 +51,7 @@ from openess_tpu_torch.models.convert import (
 from openess_tpu_torch.training import checkpoint as ckpt
 from openess_tpu_torch.training.build import (
     build_models,
+    refuse_unported_mesh,
     task_from_settings,
     trainable_labels,
 )
@@ -494,14 +496,55 @@ def test_unported_workloads_name_their_roadmap_item(kw, item):
         build_models(ts, device="cpu")
 
 
-def test_task_dispatch_matches_jax():
-    from openess_tpu.training.build import task_from_settings as jtask
-
-    for kw in (SUP_ONLY, PRETRAIN, dict(if_finetuning=True),
+YAMLS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
+    os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
+DISPATCH_KW = (SUP_ONLY, PRETRAIN, dict(if_finetuning=True),
                dict(if_linear_probing=True), {},
-               dict(if_supervised_only=True, if_pretraining=True)):
-        assert task_from_settings(torch_settings(**kw)) == jtask(
-            jax_settings(**kw))
+               dict(if_supervised_only=True, if_pretraining=True))
+
+
+@pytest.mark.parametrize(
+    "case", [("kw", kw) for kw in DISPATCH_KW] + [("yaml", y) for y in YAMLS],
+    ids=[f"kw{i}" for i in range(len(DISPATCH_KW))] + YAMLS)
+def test_task_dispatch_matches_jax(case):
+    """The two packages dispatch to the same task, on six sets of flags and
+    on every shipped YAML."""
+    from openess_tpu.config.settings import load_settings as jload
+    from openess_tpu.training.build import task_from_settings as jtask
+    from openess_tpu_torch.config.settings import load_settings as tload
+
+    kind, arg = case
+    if kind == "kw":
+        ts, js = torch_settings(**arg), jax_settings(**arg)
+    else:
+        path = os.path.join(ROOT, arg)
+        ts, js = tload(path), jload(path)
+    assert task_from_settings(ts) == jtask(js)
+
+
+def test_trainer_refuses_model_parallelism():
+    ts = torch_settings(**SUP_ONLY, mesh_model=2)
+    ds = SyntheticESS(num_samples=2, height=H, width=W, num_classes=C,
+                      num_windows=T)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(ts, ds, device="cpu")
+
+
+def test_trainer_refuses_more_data_shards_than_devices():
+    """One device on the CPU: ``mesh_data`` 2 raises; the shipped -1 and an
+    explicit 1 build."""
+    ds = SyntheticESS(num_samples=2, height=H, width=W, num_classes=C,
+                      num_windows=T)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        Trainer(torch_settings(**SUP_ONLY, mesh_data=2), ds, device="cpu")
+    for n in (-1, 1):
+        refuse_unported_mesh(torch_settings(**SUP_ONLY, mesh_data=n), "cpu")
+
+
+def test_build_models_refuses_e2vid_s2d():
+    for kw in (SUP_ONLY, PRETRAIN):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            build_models(torch_settings(**kw, e2vid_s2d=True), device="cpu")
 
 
 @pytest.fixture(scope="module")
