@@ -56,11 +56,17 @@ CUDA server against the CPU server, packing one flagship batch, K1 vs plain
 at NW = 160, training, a training trace, an f32 reference check of the CUDA
 train step against the CPU one, the fine-tune with its trace, an f32
 reference check of a small fine-tune step on CUDA against the CPU, packing
-one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes), the
-DDD17 linear probe, DDD17 serving, K5 vs plain (NW = 160, its binning
-passes against theirs, its splat into a NaN-filled grid, edge cases),
-K6 vs plain (NW = 160, both polarity modes, edge cases), the DSEC grid-wire
-trainer, the DDD17 linear probe from disk, and the summary. The kernels'
+one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes, each
+also into a NaN-filled grid), K4's edge cases (shuffled chunks,
+misaligned descriptors and ones beyond the clamp, zero and oversized
+counts, times beyond t_range and negative, padding chunks, an empty
+window, a ragged frame, each into a NaN-filled grid), the DDD17 linear
+probe, DDD17 serving, K5 vs plain (NW = 160, its binning passes against
+theirs, its splat into a NaN-filled grid, edge cases), K6 vs plain
+(NW = 160, both polarity modes, its binning passes against theirs, its
+splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer,
+the DDD17 linear probe from disk, and the summary. K1, K4, K5 and K6 are
+the tile-owner splats of ``csrc/tile_splat.cuh``. The kernels'
 launch counters are zeroed before each main-path run and read after it. Any
 failure raises and the script exits non-zero. The last line is ``{"ok":
 true, "device": {...}}``; before it come a ``{"kernels": [...]}`` line and
@@ -452,11 +458,13 @@ def k1_edge_wire(rng, case, t16):
     """A small K1 wire for one edge case, with its frame ``(H, W)``: chunks
     shuffled along the chunk axis, malformed and unaligned descriptors,
     all-padding chunks (``counts == 0``) past the 256 a block reads at a
-    time, an empty window, a ragged 100x150 synthetic frame, or 16-event
-    chunks, so that one tile meets more than 256 of them."""
+    time, an empty window, a ragged 100x150 synthetic frame, an odd width
+    (100x151: the splat's 4-byte stores), or 16-event chunks, so that one
+    tile meets more than 256 of them."""
     from openess_tpu_torch.ops import voxelize_chunked as k1
 
-    H, W = (100, 150) if case == "ragged" else (48, 96)
+    H, W = {"ragged": (100, 150), "odd width": (100, 151)}.get(case,
+                                                               (48, 96))
     chunk = 16 if case == "many chunks" else 256
     n = 5000
     x = rng.uniform(-1.5, W + 0.5, (3, n)).astype(np.float32)
@@ -490,11 +498,11 @@ def k1_edge_phase(torch, k1, dev):
     Returns the largest error relative to max|plain|."""
     phase("K1 edge cases (tile owner): NaN-filled output, shuffled chunks, "
           "malformed descriptors, padding chunks, an empty window, a ragged "
-          "100x150 frame, >256 chunks a tile")
+          "100x150 frame, >256 chunks a tile, an odd width")
     rng = np.random.default_rng(11)
     worst = 0.0
     for case in ("shuffled", "malformed", "padding chunks", "empty window",
-                 "ragged", "many chunks"):
+                 "ragged", "many chunks", "odd width"):
         for t16 in (False, True):
             wire, H, W = k1_edge_wire(rng, case, t16)
             args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -1134,10 +1142,100 @@ def ddd17_batch(s, batch=8, seed=0):
     return out, pack_s
 
 
+def k4_edge_wire(rng, case, t16, nw=3, n=5000, chunk=256):
+    """A small K4 wire of ``nw`` windows of ``n`` events for one edge case,
+    with its frame ``(H, W)``: chunks shuffled, descriptors at misaligned
+    rows or columns (a chunk at r0 = 8 meets two row tiles), descriptors
+    beyond the clamp, zero counts and counts above the chunk, times beyond
+    ``t_range`` (tn >= bins) or negative (f32 time wire), all-padding
+    chunks past the 256 a block reads at a time, an empty window, a ragged
+    37x150 frame, or an odd width (37x151: the splat's 4-byte stores)."""
+    from openess_tpu_torch.ops import voxelize_chunked as k1
+
+    H, W = {"ragged": (37, 150), "odd width": (37, 151)}.get(case, (48, 300))
+    x = rng.integers(-2, W + 2, (nw, n)).astype(np.float32)
+    y = rng.integers(-2, H + 2, (nw, n)).astype(np.float32)
+    p = rng.integers(0, 2, (nw, n)).astype(np.float32)
+    t = np.sort(rng.uniform(0, 1e6, (nw, n)), axis=1)
+    wire = [np.array(a) for a in k1.chunk_events_batch(
+        x, y, p, t, rng.random((nw, n)) < 0.9, height=H, width=W,
+        chunk=chunk, integer_coords=True, t16=t16)]
+    nbc = wire[0].shape[1]
+    if case == "shuffled":
+        for w in range(nw):
+            perm = rng.permutation(nbc)
+            for a in wire[:6]:
+                a[w] = a[w][perm]
+    elif case == "misaligned":
+        r0 = (wire[5] & 0xFFFF) + rng.choice([0, 8, -8, 3], (nw, nbc))
+        c0 = (wire[5] >> 16) + rng.choice([0, 64, -40], (nw, nbc))
+        wire[5] = ((np.clip(r0, 0, None) & 0xFFFF)
+                   | (np.clip(c0, 0, None) << 16)).astype(np.int32)
+    elif case == "beyond clamp":
+        h_pad, w_pad = k1.padded_grid_bilinear(H, W)
+        r0 = rng.integers(h_pad - 20, h_pad + 40, (nw, nbc))
+        c0 = rng.integers(w_pad - 150, w_pad + 300, (nw, nbc))
+        wire[5] = ((r0 & 0xFFFF) | (c0 << 16)).astype(np.int32)
+    elif case == "counts":
+        wire[4][0, ::3] = 0
+        wire[4][1, ::2] = chunk + 40  # above the chunk: every slot counts
+    elif case == "time range":
+        wire[6] = (wire[6] * 0.6).astype(np.float32)
+        if not t16:
+            wire[3][:, ::2] *= -1.0
+    elif case == "padding chunks":
+        wire = list(k1.pad_wire_chunks(tuple(wire), 300))
+    elif case == "empty window":
+        wire[4][1] = 0
+    return tuple(wire), H, W
+
+
+K4_EDGE_CASES = ("shuffled", "misaligned", "beyond clamp", "counts",
+                 "time range", "padding chunks", "empty window", "ragged",
+                 "odd width")
+
+
+def k4_edge_phase(torch, k1, dev):
+    """K4 against its plain version on the wires a tile owner must not
+    assume away, both time wires and both polarity modes, each launched
+    into a NaN-filled grid. Returns the largest error relative to
+    max|plain|."""
+    phase("K4 edge cases (tile owner): NaN-filled output, shuffled chunks, "
+          "misaligned descriptors, descriptors beyond the clamp, zero and "
+          "oversized counts, times beyond t_range and negative, padding "
+          "chunks, an empty window, a ragged 37x150 frame, an odd width")
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for case in K4_EDGE_CASES:
+        for t16 in (False, True):
+            wire, H, W = k4_edge_wire(rng, case, t16)
+            args = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in wire)
+            for separate in (False, True):
+                ref = k1.voxelize_chunked_bilinear_t_plain(
+                    *args, num_bins=5, height=H, width=W,
+                    separate_pol=separate)
+                err, got = nan_prefilled(
+                    torch, lambda g: k1.voxelize_chunked_bilinear_t_into(
+                        g, *args, separate_pol=separate), ref)
+                rel = err / ref.abs().max().item()
+                empty_ok = case != "empty window" or not bool(got[1].any())
+                print(f"  [{case}, {'v2 uint16' if t16 else 'v1 f32'} "
+                      f"wire, {'separate' if separate else 'signed'}, "
+                      f"{H}x{W}, {args[0].shape[1]} chunks] "
+                      f"max|kernel-plain| {rel:.3e} of max "
+                      f"{'OK' if rel <= K4_REL_TOL and empty_ok else 'FAIL'}")
+                if not rel <= K4_REL_TOL or not empty_ok:
+                    raise AssertionError(f"K4 edge case {case}: {rel}")
+                worst = max(worst, rel)
+    return worst
+
+
 def k4_phase(torch, k1, dev, flush, host_batch):
     """K4 against its plain version at the shapes the DDD17 paths launch
     it: one window (serving) and the whole batch (NW = 160, the train
-    step), signed and with separate polarities. Returns the kernel row (the
+    step), signed and with separate polarities, each also launched into a
+    NaN-filled grid, and on the edge cases. Returns the kernel row (the
     signed NW = 160 launch: what the linear-probe step does)."""
     from openess_tpu_torch.data.device_voxelize import WIRE_KEYS, upload_wire
 
@@ -1156,9 +1254,12 @@ def k4_phase(torch, k1, dev, flush, host_batch):
             got, ref = run_k(), run_p()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
+            nan_err, _ = nan_prefilled(
+                torch, lambda g: k1.voxelize_chunked_bilinear_t_into(
+                    g, *args, separate_pol=separate), ref)
             scale = ref.abs().max().item()
             total = got.sum().item()
-            ok = err <= K4_REL_TOL * scale and scale > 0
+            ok = max(err, nan_err) <= K4_REL_TOL * scale and scale > 0
             ms_k = cuda_ms(torch, run_k, flush, iters=10)
             ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
             nbytes = (events * 7 + sum(a.numel() * a.element_size()
@@ -1166,15 +1267,18 @@ def k4_phase(torch, k1, dev, flush, host_batch):
             b_ms, b_by = bound(nbytes, events * 2 * 8, F32_OPS_PER_S)
             tag = f"NW={nw}, {'separate' if separate else 'signed'} polarity"
             print(f"K4 [{tag}] grid {tuple(got.shape)} max|kernel-plain| "
-                  f"{err:.3e} (max|plain| {scale:.3f}, bound "
-                  f"{K4_REL_TOL:.0e} x max; grid sum {total:.1f}) "
-                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
-                  f"{ms_p:.4f} bound_ms {b_ms:.4f} ({b_by}; {events} events, "
-                  f"{nbytes / 1e6:.1f} MB)")
+                  f"{err:.3e}, into a NaN-filled grid {nan_err:.3e} "
+                  f"(max|plain| {scale:.3f}, bound {K4_REL_TOL:.0e} x max; "
+                  f"grid sum {total:.1f}) {'OK' if ok else 'FAIL'}; "
+                  f"kernel_ms {ms_k:.4f} plain_ms {ms_p:.4f} bound_ms "
+                  f"{b_ms:.4f} ({b_by}; {events} events, "
+                  f"{nbytes / 1e6:.1f} MB; kernel at {b_ms / ms_k:.0%} of "
+                  "it)")
             if not ok:
                 raise AssertionError(
-                    f"K4 disagrees with its plain version [{tag}]: {err}")
-            worst = max(worst, err)
+                    f"K4 disagrees with its plain version [{tag}]: {err}, "
+                    f"{nan_err}")
+            worst = max(worst, err, nan_err)
             if nw > 1 and not separate:
                 row.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
                            bound_by=b_by, library_ms=None)
@@ -1183,13 +1287,15 @@ def k4_phase(torch, k1, dev, flush, host_batch):
                 row.update({f"ms{sfx}": ms_k, f"plain_ms{sfx}": ms_p,
                             f"bound_ms{sfx}": b_ms})
             del got, ref
+    row["edge_cases_rel_err"] = k4_edge_phase(torch, k1, dev)
     return dict(
         name="K4 voxelize_chunked_bilinear_t (DDD17)", route="cuda",
         source="openess_tpu_torch/csrc/voxelize_chunked.cu",
         replaces="openess_tpu/ops/voxelize_chunked.py:353",
         max_abs_err=worst,
         check=f"ok: max|kernel-plain| <= {K4_REL_TOL:g} x max|plain|, NW = 1 "
-              "and 160, signed and separate polarities; ms is signed at "
+              "and 160, signed and separate polarities, each also into a "
+              "NaN-filled grid, and on the edge cases; ms is signed at "
               "NW = 160", **row,
     )
 
@@ -1470,7 +1576,8 @@ def grid_edge_cases(torch, dev, run, plain, height, width, integer):
     1000 slots: window 0 holds padding only (exact zeros), window 1 a single
     event (its weights sum to 1), window 2 events reaching past the frame,
     fractional negative coordinates (K5) or integer pixels outside the frame
-    (K6). Returns the largest error relative to max|plain|."""
+    (K6), in a frame of ``height x width``. Returns the largest error
+    relative to max|plain|."""
     rng = np.random.default_rng(5)
     nw, k, H, W = 3, 1000, height, width
     if integer:
@@ -1500,26 +1607,13 @@ def grid_edge_cases(torch, dev, run, plain, height, width, integer):
                                      - 1.0) <= 1e-6,
         "edge window reaches column 0": bool(got[2 * per:, :, 0].any()),
     }
-    print(f"  edge cases (padding window, one event, "
+    print(f"  edge cases at {H}x{W} (padding window, one event, "
           f"{'pixels outside the frame' if integer else 'fractional negative coordinates'}"
           f"): max|kernel-plain| {err:.3e} of max; " + ", ".join(
               f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise AssertionError(f"edge cases failed: {checks}")
     return err
-
-
-def kernel_alone(torch, k56, name, events, shape, *ints):
-    """A call that zero-fills a grid of ``shape`` and launches the grid
-    wire's kernel ``name`` on ``events`` as its wrapper prepared them: what
-    the kernel's bound counts, without the wrapper's elementwise passes.
-    Timing only; not counted as a launch of the main path."""
-    grid = torch.empty(shape, dtype=torch.float32, device=events[0].device)
-
-    def run():
-        grid.zero_()
-        k56._launch(name, (*events, grid), grid.device, *ints)
-    return run
 
 
 def normalize_ms(torch, grid, flush):
@@ -1540,9 +1634,9 @@ def normalize_ms(torch, grid, flush):
 
 
 def sorted_within_slots(torch, k56, counts, offsets, binned):
-    """K5's binned events of every run, ordered by slot, then by (x, y, tn,
-    v): the card fills each run in any order, so two binnings agree when
-    these agree."""
+    """K5's or K6's binned events of every run, ordered by slot, then by
+    (x, y, tn, v): the card fills each run in any order, so two binnings
+    agree when these agree."""
     rows, slot = k56.binned_rows(counts, offsets)
     b = binned[rows]
     order = torch.arange(rows.numel(), device=b.device)
@@ -1611,12 +1705,9 @@ def k5_phase(torch, k56, dev, flush, windows):
         counts, offsets, binned, grid, num_windows=nw, plan=plan), flush,
         iters=10)
     del grid
-    # each pass's mean device time a launch (the profiler; a call is the
-    # passes and the scratch's zero fill)
-    avg, _, _ = device_profile(torch, lambda: [run_k() for _ in range(5)])
-    passes = {e.key.replace("(anonymous namespace)::", "").replace(
-        "void ", "").split("(")[0].split("<")[0].split("::")[-1]:
-              e.self_device_time_total / e.count / 1e3 for e in avg}
+    # each pass's mean device time a launch (a call is the passes and the
+    # scratch's zero fill)
+    passes = pass_times(torch, run_k)
     ms_p = cuda_ms(torch, run_p, flush, iters=3, warmup=1)
     events = int(ev[4].sum())
     # the wrapper must read x, y, p, t and the bool valid (17 B a slot) and
@@ -1643,12 +1734,14 @@ def k5_phase(torch, k56, dev, flush, windows):
         raise AssertionError(f"K5 disagrees with its plain version: {err}, "
                              f"{nan_err}, {bin_checks}")
     del ev, counts, offsets, binned
-    edge = grid_edge_cases(
+    # the main frame, and an odd width (the splat's 4-byte stores)
+    edge = max(grid_edge_cases(
         torch, dev,
-        lambda e, n: k56.voxelize_windows_trilinear_mxu(*e, num_windows=n,
-                                                         **kw),
-        lambda e, n: voxelize_windows_trilinear(*e, num_windows=n, **kw),
-        480, 640, integer=False)
+        lambda e, n: k56.voxelize_windows_trilinear_mxu(
+            *e, num_windows=n, num_bins=5, height=h, width=w),
+        lambda e, n: voxelize_windows_trilinear(
+            *e, num_windows=n, num_bins=5, height=h, width=w),
+        h, w, integer=False) for h, w in ((480, 640), (37, 151)))
     return dict(
         name="K5 voxelize_windows_trilinear_mxu (DSEC grid wire)",
         route="cuda", source="openess_tpu_torch/csrc/voxelize_grid.cu",
@@ -1680,11 +1773,24 @@ def ddd17_events(rng, nw, k, spill=3):
             np.ones((nw, k), bool))
 
 
+def pass_times(torch, run, n=5):
+    """Each kernel's mean device milliseconds a launch over ``n`` calls of
+    ``run`` (the profiler), by the kernel's short name."""
+    avg, _, _ = device_profile(torch, lambda: [run() for _ in range(n)])
+    return {e.key.replace("(anonymous namespace)::", "").replace(
+        "void ", "").split("(")[0].split("<")[0].split("::")[-1]:
+            e.self_device_time_total / e.count / 1e3 for e in avg}
+
+
 def k6_phase(torch, k56, dev, flush):
     """K6 against its plain version at one DDD17 grid-wire batch's shape
     (NW = 160 windows of 32 000 integer-pixel events at 260x346, some
     outside the frame), signed and with separate polarities, and on the
-    edge cases. Returns the row (signed: what the linear probe launches)."""
+    edge cases; its binning passes against theirs (counts and offsets
+    exactly, each tile's events as a multiset); its splat into a
+    NaN-filled grid. Times the wrapper (raw events to the grid), the
+    binning and the splat apart, and each pass by the profiler. Returns the
+    row (signed: what the linear probe launches)."""
     from openess_tpu_torch.ops.voxelize import voxel_grid_bilinear_t
 
     phase("K6 voxelize_windows_bilinear_t_mxu vs plain (NW = 160, 32k "
@@ -1696,69 +1802,109 @@ def k6_phase(torch, k56, dev, flush):
     for separate in (False, True):
         kw = dict(num_bins=5, height=260, width=346, separate_pol=separate)
         cout = 10 if separate else 5
+        plan = k56.bilinear_t_plan(5, 260, 346, separate)
         run_k = lambda: k56.voxelize_windows_bilinear_t_mxu(
             *ev, num_windows=nw, **kw)
         run_p = lambda: voxel_grid_bilinear_t(
             *(a.view(nw, k) for a in ev), **kw).view(nw * cout, 260, 346)
+        run_b = lambda: k56.bin_events_bilinear_t(*ev, num_windows=nw, **kw)
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
-        ok = err <= K56_REL_TOL * scale and scale > 0
-        del got, ref
+        del got
+        counts, offsets, binned = run_b()
+        splat_kw = dict(num_windows=nw, num_bins=5, separate_pol=separate,
+                        plan=plan)
+        nan_err, _ = nan_prefilled(
+            torch, lambda g: k56.splat_binned_bilinear_t(
+                counts, offsets, binned, g, **splat_kw), ref)
+        ok = max(err, nan_err) <= K56_REL_TOL * scale and scale > 0
+        del ref
+        pc, po, pb = k56.bin_events_bilinear_t_plain(
+            *ev, num_windows=nw, num_bins=5, plan=plan)
+        kept = int(pc.sum())
+        bin_checks = {
+            "counts equal": bool(torch.equal(counts, pc)),
+            "offsets equal": bool(torch.equal(offsets, po)),
+            "each tile's events equal as a multiset": bool(torch.equal(
+                sorted_within_slots(torch, k56, counts, offsets, binned),
+                sorted_within_slots(torch, k56, pc, po, pb))),
+        }
+        del pc, po, pb
         ms_w = cuda_ms(torch, run_k, flush, iters=10)
-        ms_k = cuda_ms(torch, kernel_alone(
-            torch, k56, "voxelize_windows_bilinear_t",
-            k56.bilinear_t_events(*ev, nw, 5, 260, 346),
-            (nw * cout, 260, 346), nw, k, 5, int(separate), 260, 346),
-            flush, iters=10)
+        ms_bin = cuda_ms(torch, run_b, flush, iters=10)
+        grid = torch.empty((nw * cout, 260, 346), device=dev)
+        ms_splat = cuda_ms(torch, lambda: k56.splat_binned_bilinear_t(
+            counts, offsets, binned, grid, **splat_kw), flush, iters=10)
+        del grid
+        passes = pass_times(torch, run_k)
         ms_p = cuda_ms(torch, run_p, flush, iters=3, warmup=1)
-        inb = ((ev[0] >= 0) & (ev[0] < 346) & (ev[1] >= 0) & (ev[1] < 260))
-        events = int(inb.sum())
+        events = int((ev[4] & (ev[0] >= 0) & (ev[0] < 346) & (ev[1] >= 0)
+                      & (ev[1] < 260)).sum())
         grid_bytes = nw * cout * 260 * 346 * 4
-        nbytes = ev[0].numel() * 16 + grid_bytes
-        b_ms, b_by = bound(nbytes, events * 2 * 8, F32_OPS_PER_S)
-        b_ms_w, _ = bound(ev[0].numel() * 17 + grid_bytes, events * 2 * 8,
-                          F32_OPS_PER_S)
+        # the wrapper must read x, y, p, t and the bool valid (17 B a slot)
+        # and write the grid; the splat alone reads its 16 B a kept event
+        b_ms, b_by = bound(ev[0].numel() * 17 + grid_bytes, events * 2 * 8,
+                           F32_OPS_PER_S)
+        b_ms_splat, _ = bound(kept * 16 + grid_bytes, kept * 2 * 8,
+                              F32_OPS_PER_S)
+        extra_ms = (ev[0].numel() * 17 + kept * 32) / HBM_BYTES_PER_S * 1e3
         tag = "separate" if separate else "signed"
-        print(f"K6 [NW={nw}, {tag} polarity] max|kernel-plain| {err:.3e} "
-              f"(max|plain| {scale:.3f}, bound {K56_REL_TOL:.0e} x max) "
-              f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} (zero fill "
-              f"and kernel) bound_ms {b_ms:.4f} ({b_by}; {events} events in "
-              f"the frame of {ev[0].numel()}, {nbytes / 1e6:.1f} MB); the "
-              f"wrapper {ms_w:.4f} against {b_ms_w:.4f}; plain_ms "
-              f"{ms_p:.4f}")
-        if not ok:
+        print(f"K6 binning vs plain [{tag}] ({kept} of {ev[0].numel()} "
+              f"events kept, {plan.slots(nw)} slots of {plan.tiles} "
+              f"{plan.rows}x{plan.cols} tiles a window): " + ", ".join(
+                  f"{k_} {'ok' if v else 'FAIL'}"
+                  for k_, v in bin_checks.items()))
+        print(f"K6 [NW={nw}, {tag} polarity] max|kernel-plain| {err:.3e}, "
+              f"the splat into a NaN-filled grid {nan_err:.3e} (max|plain| "
+              f"{scale:.3f}, bound {K56_REL_TOL:.0e} x max) "
+              f"{'OK' if ok else 'FAIL'}; the wrapper (raw events to the "
+              f"grid) {ms_w:.4f} ms against bound_ms {b_ms:.4f} ({b_by}; "
+              f"{events} events in the frame, 17 B a slot and the grid; "
+              f"{b_ms / ms_w:.0%} of it); binning {ms_bin:.4f}, splat "
+              f"{ms_splat:.4f} against {b_ms_splat:.4f}; binning's bytes "
+              f"beyond the bound {extra_ms:.4f} ms; passes (profiler, ms): "
+              + ", ".join(f"{k_} {v:.4f}" for k_, v in passes.items())
+              + f"; plain_ms {ms_p:.4f}")
+        if not ok or not all(bin_checks.values()):
             raise AssertionError(
-                f"K6 disagrees with its plain version [{tag}]: {err}")
-        worst = max(worst, err)
+                f"K6 disagrees with its plain version [{tag}]: {err}, "
+                f"{nan_err}, {bin_checks}")
+        worst = max(worst, err, nan_err)
+        del counts, offsets, binned
+        sfx = "_separate" if separate else ""
+        if not separate:
+            row.update(ms=ms_w, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=None)
+        row.update({f"ms_wrapper{sfx}": ms_w, f"bound_ms_wrapper{sfx}": b_ms,
+                    f"ms_binning{sfx}": ms_bin, f"ms_splat{sfx}": ms_splat,
+                    f"bound_ms_splat{sfx}": b_ms_splat,
+                    f"binning_extra_bytes_ms{sfx}": extra_ms,
+                    f"pass_ms{sfx}": passes})
         if separate:
-            row.update(ms_separate=ms_k, ms_wrapper_separate=ms_w,
-                       plain_ms_separate=ms_p, bound_ms_separate=b_ms,
-                       bound_ms_wrapper_separate=b_ms_w)
-        else:
-            row.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=None, ms_wrapper=ms_w,
-                       bound_ms_wrapper=b_ms_w)
-        edge = grid_edge_cases(
+            row.update(ms_separate=ms_w, plain_ms_separate=ms_p,
+                       bound_ms_separate=b_ms)
+        edge = max(grid_edge_cases(
             torch, dev,
             lambda e, n: k56.voxelize_windows_bilinear_t_mxu(
-                *e, num_windows=n, **kw),
+                *e, num_windows=n, **dict(kw, height=h, width=w)),
             lambda e, n: voxel_grid_bilinear_t(
-                *(a.view(n, -1) for a in e), **kw).reshape(n * cout, 260,
-                                                           346),
-            260, 346, integer=True)
+                *(a.view(n, -1) for a in e), **dict(kw, height=h, width=w),
+            ).reshape(n * cout, h, w),
+            h, w, integer=True) for h, w in ((260, 346), (37, 151)))
         row[f"edge_cases_rel_err_{tag}"] = edge
     return dict(
         name="K6 voxelize_windows_bilinear_t_mxu (DDD17 grid wire)",
         route="cuda", source="openess_tpu_torch/csrc/voxelize_grid.cu",
         replaces="openess_tpu/ops/voxelize_mxu.py:169", max_abs_err=worst,
         check=f"ok: max|kernel-plain| <= {K56_REL_TOL:g} x max|plain|, "
-              "NW = 160 signed and separate, and the edge cases; ms is the "
-              "zero fill and the signed kernel on prepared events (16 B a "
-              "slot in bound_ms), ms_wrapper adds the time normalization "
-              "and the padding routing (17 B a slot in bound_ms_wrapper)",
-              **row,
+              "NW = 160 signed and separate (the splat also into a "
+              "NaN-filled grid), and the edge cases; the binning's counts "
+              "and offsets equal the plain version's, each tile's events as "
+              "a multiset; ms is the signed wrapper, raw events to the grid "
+              "(17 B a slot and the grid in bound_ms), ms_splat the splat "
+              "pass on binned events", **row,
     )
 
 

@@ -1,17 +1,18 @@
-// The tile-owner trilinear splat shared by K1 (csrc/voxelize_chunked.cu)
-// and K5 (csrc/voxelize_grid.cu), for Hopper (sm_90a).
+// The tile-owner splat shared by K1 and K4 (csrc/voxelize_chunked.cu) and
+// K5 and K6 (csrc/voxelize_grid.cu), for Hopper (sm_90a).
 //
-// One block owns one output tile of one window's [bins, H, W] f32 grid:
-// frame rows [r0, r1) and columns [c0, c1), every bin. It zeroes a
-// [bins, rows, pitch] f32 accumulator in dynamic shared memory, adds every
-// corner of its events that falls in its tile with shared-memory atomics,
-// and then writes the whole tile once with 16-byte streaming stores, zeros
-// included. The grid is then written exactly once and needs neither a zero
-// fill nor global atomics: what a splat must move, the events read and the
-// grid written, is all the device memory it touches. The tile's geometry
-// comes from the wrappers' plan (openess_tpu_torch/ops/tile_splat.py);
-// the pitch is cols + 4 floats, so the rows of one column fall in
-// different banks while each row stays 16-byte aligned.
+// One block owns one output tile of one window's [channels, H, W] f32
+// grid: frame rows [r0, r1) and columns [c0, c1), every channel. It zeroes
+// a [channels, rows, pitch] f32 accumulator in dynamic shared memory, adds
+// every corner of its events that falls in its tile with shared-memory
+// atomics, and then writes the whole tile once with streaming stores,
+// zeros included. The grid is then written exactly once and needs neither
+// a zero fill nor global atomics: what a splat must move, the events read
+// and the grid written, is all the device memory it touches. The tile's
+// geometry comes from the wrappers' plan
+// (openess_tpu_torch/ops/tile_splat.py); the pitch is cols + 4 floats, so
+// the rows of one column fall in different banks while each row stays
+// 16-byte aligned.
 //
 // Where a tile's time goes on an H100 (tools/tile_splat_sweep.py, which
 // also times ablated builds of this core): writing the tiles alone runs at
@@ -24,23 +25,36 @@
 //
 // The events come as segments: runs of consecutive event slots, each with
 // the box of frame columns [x lo, x hi) and rows [y lo, y hi) its corners
-// are kept in (the tile, cut for K1 by the chunk's block). accumulate()
-// is templated on how an event slot is read: K1 dequantizes the
-// sorted-chunk wire, K5 loads its binned, prepared float4.
+// are kept in (the tile, cut for K1 and K4 by the chunk's block).
+// accumulate() is templated on how an event slot is read (K1 and K4
+// dequantize the sorted-chunk wire, K5 and K6 load their binned float4)
+// and on what an event adds: Trilinear's 8 corners (K1, K5) or
+// BilinearT's 2 (K4, K6).
 //
-// The corner rule is the plain versions': corners {x0, x0+1} x {y0, y0+1}
-// x {t0, t0+1} with the coordinates truncated toward zero (a C (int) cast,
-// torch .int()), weights w = 1 - |corner - coord| multiplied as
+// Trilinear's corner rule is the plain versions': corners {x0, x0+1} x
+// {y0, y0+1} x {t0, t0+1} with the coordinates truncated toward zero (a C
+// (int) cast, torch .int()), weights w = 1 - |corner - coord| multiplied as
 // ((v * wx) * wy) * wt in f32, corners outside [0, bins) in time dropped.
+// BilinearT's is splat2_bilinear_t's, below.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace tile_splat {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// Blocks an SM that a splat's shared memory allows at the default tile,
+// stated in the kernels' launch bounds: a 42 KB accumulator beside K1's
+// and K4's 7 KB of segments fits 4 times in an SM's 228 KB, beside the
+// binned splats' few bytes 5 times. Without them ptxas aims at the
+// registers of 6 to 8 blocks (32 or 40) and spills; with them the splats
+// also run faster.
+constexpr int kChunkSplatBlocks = 4;
+constexpr int kBinnedSplatBlocks = 5;
 
 // The block's tile: frame rows [r0, r1), columns [c0, c1).
 struct Tile {
@@ -146,67 +160,160 @@ __device__ __forceinline__ void splat8(float* acc, float x, float y,
   }
 }
 
+// Adds one event at the integer pixel (xi, yi) = (trunc x, trunc y), if
+// that lies in box, bilinearly in time (K4, K6), in the plain versions' f32
+// order: nothing unless tn >= 0; ti = trunc tn, dts = tn - ti; 1 - dts in
+// time bin ti and dts in ti + 1, each where that bin is below `bins`;
+// signed by v into channels [0, bins), or with separate_pol unsigned into
+// channel ti (v > 0) or bins + ti (otherwise) of 2 * bins.
+__device__ __forceinline__ void splat2_bilinear_t(
+    float* acc, float x, float y, float tn, float v, int4 box,
+    const Tile& tile, int bins, bool separate_pol, int rows, int pitch) {
+  if (!(tn >= 0.0f)) return;
+  const int xi = (int)x, yi = (int)y;
+  if (xi < box.x || xi >= box.y || yi < box.z || yi >= box.w) return;
+  const int ti = (int)tn;
+  if (ti >= bins) return;
+  const float dts = tn - (float)ti;
+  const float sign = separate_pol ? 1.0f : v;
+  const int ch = (separate_pol && !(v > 0.0f)) ? bins + ti : ti;
+  float* cell = acc + (ch * rows + (yi - tile.r0)) * pitch + (xi - tile.c0);
+  atomicAdd(cell, sign * (1.0f - dts));
+  if (ti + 1 < bins) atomicAdd(cell + rows * pitch, sign * dts);
+}
+
+// What an event adds, for accumulate(): K1's and K5's 8 corners ...
+struct Trilinear {
+  int bins;
+
+  __device__ __forceinline__ void operator()(float* acc, float x, float y,
+                                             float tn, float v, int4 box,
+                                             const Tile& tile, int rows,
+                                             int pitch) const {
+    splat8(acc, x, y, tn, v, box, tile, bins, rows, pitch);
+  }
+};
+
+// ... or K4's and K6's 2 (channels = bins, or 2 * bins with separate_pol).
+struct BilinearT {
+  int bins;
+  bool separate_pol;
+
+  __device__ __forceinline__ void operator()(float* acc, float x, float y,
+                                             float tn, float v, int4 box,
+                                             const Tile& tile, int rows,
+                                             int pitch) const {
+    splat2_bilinear_t(acc, x, y, tn, v, box, tile, bins, separate_pol, rows,
+                      pitch);
+  }
+};
+
 // Splats every event of segs' segments. The threads stride over the
 // segments' concatenated slots; each walks its segment index forward.
-template <class Reader, int kCap>
+template <class Reader, class Splat, int kCap>
 __device__ __forceinline__ void accumulate(float* acc,
                                            const Segs<kCap>& segs,
                                            const Reader& rd,
-                                           const Tile& tile, int bins,
-                                           int rows, int pitch) {
+                                           const Splat& splat,
+                                           const Tile& tile, int rows,
+                                           int pitch) {
   const int total = segs.start[segs.n];
   int k = 0;
   for (int g = threadIdx.x; g < total; g += kThreads) {
     while (segs.start[k + 1] <= g) ++k;
     float x, y, tn, v;
     rd.load(segs.base[k] + (g - segs.start[k]), x, y, tn, v);
-    splat8(acc, x, y, tn, v, segs.box[k], tile, bins, rows, pitch);
+    splat(acc, x, y, tn, v, segs.box[k], tile, rows, pitch);
   }
 }
 
-// Writes the tile's cells of every bin to the window's grid (plane
-// H * W), each once: a warp takes a row of one bin at a time, its lanes the
-// row's 16-byte pieces (streaming stores) when rows are 16-byte aligned
-// (W % 4 == 0; c0 and the pitch are multiples of 4), else single floats.
-// One division a row, none a cell.
+// The floats a grid row is stored in at a time: 4 (16 bytes) when rows are
+// 16-byte aligned (W % 4 == 0; c0 and the pitch are multiples of 4), 2 when
+// they are 8-byte aligned (W even, as DDD17's 346: the tile's width is then
+// even too), else 1. Each splat kernel takes it as a template parameter,
+// so an instantiation holds one store loop: on an H100 that ran faster,
+// for each of the four kernels, than one loop choosing among the three
+// widths row by row, which also took more registers.
+template <int kVec>
+struct StoreVec;
+template <>
+struct StoreVec<4> {
+  using type = float4;
+};
+template <>
+struct StoreVec<2> {
+  using type = float2;
+};
+template <>
+struct StoreVec<1> {
+  using type = float;
+};
+
+// Calls launch(std::integral_constant<int, kVec>{}) with kVec the store
+// width of a grid `width` floats wide; returns what launch returns.
+template <class Launch>
+inline cudaError_t with_store_vec(int width, Launch launch) {
+  if ((width & 3) == 0) return launch(std::integral_constant<int, 4>{});
+  if ((width & 1) == 0) return launch(std::integral_constant<int, 2>{});
+  return launch(std::integral_constant<int, 1>{});
+}
+
+// Writes the tile's cells of every channel to the window's grid (plane
+// H * W), each once, after a barrier that ends the accumulation: a warp
+// takes a row of one channel at a time, its lanes the row's kVec-float
+// pieces, with streaming stores. The grid must be 16-byte aligned. One
+// division a row, none a cell.
+template <int kVec>
 __device__ __forceinline__ void store_tile(const float* acc, float* grid,
-                                           const Tile& tile, int bins,
+                                           const Tile& tile, int channels,
                                            int rows, int pitch, int height,
                                            int width) {
+  using V = typename StoreVec<kVec>::type;
+  __syncthreads();
   const int nr = tile.r1 - tile.r0, nc = tile.c1 - tile.c0;
   const int lane = threadIdx.x & 31;
   const long long plane = (long long)height * width;
-  for (int row = threadIdx.x >> 5; row < bins * nr; row += kWarps) {
+  for (int row = threadIdx.x >> 5; row < channels * nr; row += kWarps) {
     const int ct = row / nr, r = row - ct * nr;
     const float* src = acc + (ct * rows + r) * pitch;
     float* dst = grid + ct * plane + (long long)(tile.r0 + r) * width +
                  tile.c0;
-    if ((width & 3) == 0) {
-      for (int c = 4 * lane; c < nc; c += 128)
-        __stcs(reinterpret_cast<float4*>(dst + c),
-               *reinterpret_cast<const float4*>(src + c));
-    } else {
-      for (int c = lane; c < nc; c += 32) __stcs(dst + c, src[c]);
-    }
+    for (int c = kVec * lane; c < nc; c += 32 * kVec)
+      __stcs(reinterpret_cast<V*>(dst + c),
+             *reinterpret_cast<const V*>(src + c));
   }
 }
 
-// Allows a kernel `smem` bytes of dynamic shared memory on the current
+// Allows `kernel` `smem` bytes of dynamic shared memory on the current
 // device; returns the CUDA error. Needed whenever static and dynamic
 // shared memory pass 48 KB together (K1's splat: 7 KB of segments beside a
-// 41 KB tile). `allowed` is the caller's record of what each device
-// already allows, so the attribute is set once a device.
+// 41 KB tile). The attribute is set once a (kernel, device): a table
+// remembers what each already allows.
 template <class Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int smem, int (&allowed)[64]) {
+inline cudaError_t allow_smem(Kernel kernel, int smem) {
+  struct Allowed {
+    const void* kernel;
+    int device, smem;
+  };
+  static Allowed table[128];
+  static int used = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev < 64 && smem <= allowed[dev]) return cudaSuccess;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  int i = 0;
+  while (i < used && (table[i].kernel != key || table[i].device != dev)) ++i;
+  if (i < used && smem <= table[i].smem) return cudaSuccess;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
-  if (err == cudaSuccess && dev < 64) allowed[dev] = smem;
-  return err;
+  if (err != cudaSuccess) return err;
+  if (i < used) {
+    table[i].smem = smem;
+  } else if (used < 128) {
+    table[used++] = Allowed{key, dev, smem};
+  }
+  return cudaSuccess;
 }
 
 }  // namespace tile_splat

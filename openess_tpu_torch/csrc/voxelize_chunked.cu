@@ -1,6 +1,7 @@
 // K1 and K4: the two voxelizers of the sorted-chunk event wire, for Hopper
-// (sm_90a). K1 (tri_tile_splat, DSEC) is described first, K4 (bil_splat,
-// DDD17) above its kernel.
+// (sm_90a), both tile-owner splats of csrc/tile_splat.cuh and one kernel,
+// chunk_tile_splat, templated on the splat. K1 (DSEC) is described first,
+// K4 (DDD17) below it.
 //
 // K1: signed trilinear splat of the sorted-chunk event wire into per-window
 // voxel grids.
@@ -80,24 +81,33 @@ struct WireReader {
   }
 };
 
-template <bool kT16>
-__global__ void __launch_bounds__(kThreads)
-tri_tile_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
-               const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
-               const int32_t* __restrict__ counts,
-               const int32_t* __restrict__ desc,
-               const float* __restrict__ t_range, float* __restrict__ out,
-               int nbc, int chunk, int bins, int height, int width,
-               int r0_max, int c0_max, int rows, int cols, int pitch,
-               int tiles_x) {
+// K1's and K4's kernel, one block per (tile, window) (the design above):
+// it reads its window's descriptors 256 at a time and keeps each chunk
+// whose clamped block, rows [r0, r0 + kBlockRows) and columns
+// [c0, c0 + kBlockCols) cut to the frame, meets its tile. Splat is
+// tile_splat::Trilinear for K1 (a 24 x 256 block) or tile_splat::BilinearT
+// for K4 (16 x 128); channels is bins, or 2 * bins for K4 with
+// separate_pol.
+template <bool kT16, int kVec, class Splat, int kBlockRows, int kBlockCols>
+__global__ void __launch_bounds__(kThreads, tile_splat::kChunkSplatBlocks)
+chunk_tile_splat(const int16_t* __restrict__ xq,
+                 const int16_t* __restrict__ yq,
+                 const uint8_t* __restrict__ pq,
+                 const void* __restrict__ t_rel,
+                 const int32_t* __restrict__ counts,
+                 const int32_t* __restrict__ desc,
+                 const float* __restrict__ t_range, float* __restrict__ out,
+                 Splat splat, int channels, int nbc, int chunk, int height,
+                 int width, int r0_max, int c0_max, int rows, int cols,
+                 int pitch, int tiles_x) {
   extern __shared__ float4 dyn_smem[];
   float* acc = reinterpret_cast<float*>(dyn_smem);
   __shared__ tile_splat::ChunkSegs segs;
   const int w = blockIdx.y;
   const tile_splat::Tile tile =
       tile_splat::tile_of(blockIdx.x, rows, cols, tiles_x, height, width);
-  tile_splat::zero_tile(acc, bins * rows * pitch);
-  const WireReader<kT16> rd{xq, yq, pq, t_rel, (float)(bins - 1),
+  tile_splat::zero_tile(acc, channels * rows * pitch);
+  const WireReader<kT16> rd{xq, yq, pq, t_rel, (float)(splat.bins - 1),
                             kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f)};
 
   for (int j0 = 0; j0 < nbc; j0 += kThreads) {
@@ -108,20 +118,21 @@ tri_tile_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
     if (j < nbc) {
       n = min(counts[wc], chunk);
       // packed descriptor: row offset | (col offset << 16), clamped as the
-      // TPU wrapper clamps it (voxelize_chunked.py:498-501)
+      // TPU wrappers clamp it (voxelize_chunked.py:498-501, 539-540)
       const int d = desc[wc];
       const int r0 = min(max(d & 0xFFFF, 0), r0_max);
       const int c0 = min(max(d >> 16, 0), c0_max);
-      box = make_int4(max(c0, tile.c0), min(c0 + kColsBlock, tile.c1),
-                      max(r0, tile.r0), min(r0 + kRowsBlock, tile.r1));
+      box = make_int4(max(c0, tile.c0), min(c0 + kBlockCols, tile.c1),
+                      max(r0, tile.r0), min(r0 + kBlockRows, tile.r1));
     }
     const bool keep = n > 0 && box.x < box.y && box.z < box.w;
     tile_splat::gather_segs(segs, keep, n, wc * chunk, box);
-    tile_splat::accumulate(acc, segs, rd, tile, bins, rows, pitch);
+    tile_splat::accumulate(acc, segs, rd, splat, tile, rows, pitch);
     __syncthreads();  // segs is rewritten by the next 256 chunks
   }
-  tile_splat::store_tile(acc, out + (long long)w * bins * height * width,
-                         tile, bins, rows, pitch, height, width);
+  tile_splat::store_tile<kVec>(
+      acc, out + (long long)w * channels * height * width, tile, channels,
+      rows, pitch, height, width);
 }
 
 // K4: DDD17 voxelizer, exact pixel and bilinear in time.
@@ -140,62 +151,50 @@ tri_tile_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
 // kernel rounds 1 - dts and dts to bf16 for its matrix unit, this one does
 // not.
 //
-// It is not the TPU kernel's one-hot matmul: a scatter with two f32 atomics
-// per event, one block per (window, chunk), threads striding over the
-// chunk's events. What bounds it on an H100: per 32k-event DDD17 window it
-// reads 0.22 MB of wire and writes a 5 x 260 x 346 f32 grid (1.8 MB, zero
-// filled by the wrapper), microseconds of HBM traffic; the 64k atomics per
-// window resolve in L2. Offsets into the grid are 64-bit.
+// What bounds it on an H100: at DDD17's batch (160 windows of 32k events,
+// 5 x 260 x 346) it reads 36 MB of wire (7 B an event) and writes a 288 MB
+// f32 grid (576 MB with separate_pol): 0.097 ms of HBM traffic (0.183).
+// Its first design (one block per chunk, two f32 atomicAdds per event into
+// a zero-filled grid in device memory) took 4x that: 10 M atomics
+// resolving in L2 behind the fill.
+//
+// This design is K1's tile owner, chunk_tile_splat, with K4's splat
+// (tile_splat::BilinearT) and K4's block: one block per (tile, window)
+// keeps each chunk whose clamped block, cut to the frame, meets its tile;
+// the chunk's events are kept in that intersection. No order of
+// chunks and no alignment of r0 or c0 is assumed: a chunk at a misaligned
+// r0 meets two row tiles, and each keeps its own rows. Events past
+// min(count, chunk) are padding. The chunker's blocks are the 16 x 128
+// tiles themselves (r0 on a 16-row tile, c0 128-aligned), so a well-formed
+// chunk is read by exactly one tile, and every event is read once.
 constexpr int kRowsBil = 16;   // TILE_ROWS
 constexpr int kColsBil = 128;  // _COLS_BIL
 
-template <bool kT16>
-__global__ void __launch_bounds__(kThreads)
-bil_splat(const int16_t* __restrict__ xq, const int16_t* __restrict__ yq,
-          const uint8_t* __restrict__ pq, const void* __restrict__ t_rel,
-          const int32_t* __restrict__ counts, const int32_t* __restrict__ desc,
-          const float* __restrict__ t_range, float* __restrict__ out,
-          int nbc, int chunk, int bins, int separate_pol, int height,
-          int width, int r0_max, int c0_max) {
-  const int w = blockIdx.y;
-  const long long wc = (long long)w * nbc + blockIdx.x;
-  const int n = min(counts[wc], chunk);
-  if (n <= 0) return;
-  // packed descriptor, clamped as the TPU wrapper clamps it
-  // (voxelize_chunked.py:539-540)
-  const int d = desc[wc];
-  const int r0 = min(max(d & 0xFFFF, 0), r0_max);
-  const int c0 = min(max(d >> 16, 0), c0_max);
-  const int row_hi = min(r0 + kRowsBil, height);
-  const int col_hi = min(c0 + kColsBil, width);
-  const float tb = (float)(bins - 1);
-  const float rng = kT16 ? 0.0f : fmaxf(t_range[w], 1e-9f);
-  const int cout = separate_pol ? 2 * bins : bins;
-  const long long plane = (long long)height * width;
-  float* grid = out + (long long)w * cout * plane;
-  const long long base = wc * chunk;
-
-  for (int e = threadIdx.x; e < n; e += kThreads) {
-    const long long s = base + e;
-    const float x = (float)xq[s] * kInvFixedPoint;
-    const float y = (float)yq[s] * kInvFixedPoint;
-    float tn;
-    if (kT16) {
-      tn = tb * (float)((const uint16_t*)t_rel)[s] * (1.0f / 65535.0f);
-    } else {
-      tn = tb * ((const float*)t_rel)[s] / rng;
-    }
-    if (!(tn >= 0.0f)) continue;
-    const int xi = (int)x, yi = (int)y, ti = (int)tn;
-    if (xi < c0 || xi >= col_hi || yi < r0 || yi >= row_hi) continue;
-    const float dts = tn - (float)ti;
-    const float v = 2.0f * (float)pq[s] - 1.0f;
-    const float sign = separate_pol ? 1.0f : v;
-    const int ch = (separate_pol && !(v > 0.0f)) ? bins + ti : ti;
-    float* cell = grid + (long long)ch * plane + (long long)yi * width + xi;
-    if (ti < bins) atomicAdd(cell, sign * (1.0f - dts));
-    if (ti + 1 < bins) atomicAdd(cell + plane, sign * dts);
-  }
+// Launches chunk_tile_splat with the store width of `width` and the time
+// wire of t16; returns the CUDA error.
+template <class Splat, int kBlockRows, int kBlockCols>
+int launch_chunk_splat(const void* xq, const void* yq, const void* pq,
+                       const void* t_rel, const void* counts,
+                       const void* desc, const void* t_range, void* out,
+                       Splat splat, int channels, int nw, int nbc, int chunk,
+                       int height, int width, int r0_max, int c0_max,
+                       int rows, int cols, int pitch, int tiles, int tiles_x,
+                       int smem, int t16, void* stream) {
+  if (nw <= 0) return 0;
+  return (int)tile_splat::with_store_vec(width, [&](auto vec) {
+    constexpr int kVec = decltype(vec)::value;
+    auto kernel =
+        t16 ? chunk_tile_splat<true, kVec, Splat, kBlockRows, kBlockCols>
+            : chunk_tile_splat<false, kVec, Splat, kBlockRows, kBlockCols>;
+    cudaError_t err = tile_splat::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(tiles, nw), kThreads, smem, (cudaStream_t)stream>>>(
+        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
+        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
+        (float*)out, splat, channels, nbc, chunk, height, width, r0_max,
+        c0_max, rows, cols, pitch, tiles_x);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -211,44 +210,25 @@ extern "C" int voxelize_chunked_trilinear(
     int nw, int nbc, int chunk, int bins, int height, int width, int r0_max,
     int c0_max, int rows, int cols, int pitch, int tiles, int tiles_x,
     int smem, int t16, void* stream) {
-  if (nw <= 0) return 0;
-  const dim3 grid(tiles, nw);
-  cudaStream_t st = (cudaStream_t)stream;
-  static int allowed[2][64];
-  auto kernel = t16 ? tri_tile_splat<true> : tri_tile_splat<false>;
-  cudaError_t err = tile_splat::allow_smem(kernel, smem, allowed[t16 != 0]);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, st>>>(
-      (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
-      (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
-      (float*)out, nbc, chunk, bins, height, width, r0_max, c0_max, rows,
-      cols, pitch, tiles_x);
-  return (int)cudaGetLastError();
+  return launch_chunk_splat<tile_splat::Trilinear, kRowsBlock, kColsBlock>(
+      xq, yq, pq, t_rel, counts, desc, t_range, out,
+      tile_splat::Trilinear{bins}, bins, nw, nbc, chunk, height, width,
+      r0_max, c0_max, rows, cols, pitch, tiles, tiles_x, smem, t16, stream);
 }
 
-// Plain C entry for ctypes (K4). out must hold nw * cout * height * width
-// zeros, cout = separate_pol ? 2 * bins : bins. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// Plain C entry for ctypes (K4). out holds nw * cout * height * width
+// floats, cout = separate_pol ? 2 * bins : bins, each written once (no fill
+// needed); the geometry and smem are the tile plan's for cout channels.
+// Launches on `stream` and returns the CUDA error (0 on success).
 extern "C" int voxelize_chunked_bilinear_t(
     const void* xq, const void* yq, const void* pq, const void* t_rel,
     const void* counts, const void* desc, const void* t_range, void* out,
     int nw, int nbc, int chunk, int bins, int separate_pol, int height,
-    int width, int r0_max, int c0_max, int t16, void* stream) {
-  if (nw <= 0 || nbc <= 0 || chunk <= 0) return 0;
-  const dim3 grid(nbc, nw);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (t16) {
-    bil_splat<true><<<grid, kThreads, 0, st>>>(
-        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
-        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
-        (float*)out, nbc, chunk, bins, separate_pol, height, width, r0_max,
-        c0_max);
-  } else {
-    bil_splat<false><<<grid, kThreads, 0, st>>>(
-        (const int16_t*)xq, (const int16_t*)yq, (const uint8_t*)pq, t_rel,
-        (const int32_t*)counts, (const int32_t*)desc, (const float*)t_range,
-        (float*)out, nbc, chunk, bins, separate_pol, height, width, r0_max,
-        c0_max);
-  }
-  return (int)cudaGetLastError();
+    int width, int r0_max, int c0_max, int rows, int cols, int pitch,
+    int tiles, int tiles_x, int smem, int t16, void* stream) {
+  return launch_chunk_splat<tile_splat::BilinearT, kRowsBil, kColsBil>(
+      xq, yq, pq, t_rel, counts, desc, t_range, out,
+      tile_splat::BilinearT{bins, separate_pol != 0},
+      separate_pol ? 2 * bins : bins, nw, nbc, chunk, height, width, r0_max,
+      c0_max, rows, cols, pitch, tiles, tiles_x, smem, t16, stream);
 }

@@ -51,22 +51,37 @@
 // into a zero-filled grid, behind four elementwise preparation passes in
 // the wrapper, took 8.5x the bound.
 //
-// K6 (bil_splat_events, DDD17): replaces openess_tpu/ops/voxelize_mxu.py:
-// _kernel_bilinear_t (reached through voxelize_windows_bilinear_t_mxu).
-// It takes four prepared f32 arrays from its wrapper (per-window time
-// normalization, polarity 0 counted as -1, padding and out-of-frame events
-// routed out by markers) and a zero-filled grid. An event at integer pixel
-// (trunc x, trunc y) adds 1 - dts to time bin ti = trunc(tn) and dts =
-// tn - ti to bin ti + 1 where that bin exists, signed by its polarity into
-// `bins` channels, or unsigned into the positive (pol > 0) or negative
-// block of 2 * bins channels with separate_pol. It adds nothing unless
-// tn >= 0, tn < bins and pol != 0, the TPU kernel's `ok`. This is K4's
-// splat (csrc/voxelize_chunked.cu) on raw events in place of the
-// sorted-chunk wire. It is a scatter, one thread an event slot, two f32
-// atomicAdds into global memory; only the order of the atomics differs
-// from the plain version. At DDD17's batch (160 x 32k events,
-// 5 x 260 x 346) it reads 82 MB and writes 288 MB (576 MB with
-// separate_pol).
+// K6 (DDD17): replaces openess_tpu/ops/voxelize_mxu.py:_kernel_bilinear_t
+// (reached through voxelize_windows_bilinear_t_mxu). It computes the same
+// function: per window, the valid times normalized to tn = (bins - 1) *
+// (t - t_first) / dt over the window's valid events, in frame or not (dt
+// replaced by 1 only where it is 0, DDD17's rule), polarity 0 counted as
+// -1; an event whose float coordinates lie in the frame (0 <= x < W,
+// 0 <= y < H, the JAX wrapper's in-frame test, so x or y in (-1, 0) is
+// dropped) adds, at its integer pixel (trunc x, trunc y), 1 - dts to time
+// bin ti = trunc(tn) and dts = tn - ti to bin ti + 1 where that bin exists,
+// signed by its polarity into `bins` channels, or unsigned into the
+// positive (pol > 0) or negative block of 2 * bins channels with
+// separate_pol. This is K4's splat (csrc/voxelize_chunked.cu) on raw events
+// in place of the sorted-chunk wire, and its passes are K5's:
+//   (a) bin_count<PixelRule>: each window's first and last valid time and
+//       the events per (window, tile): an event goes to the tile of its
+//       pixel, one slot a tile (ops/tile_splat.pixel_slots);
+//   (b) bin_scatter<PixelRule>: each kept event's (x, y, tn, pol), 16 B,
+//       to its tile's run;
+//   (c) bil_tile_splat_binned: the tile-owner splat over the tile's own
+//       run (an event touches one pixel, so nothing spills).
+// The record is K5's float4, so one reader and one splat serve K4 and K6;
+// a packed 8 B record (offset in the tile, bin, sign, dts) would save
+// 82 MB of scratch traffic at DDD17's batch, ~0.025 ms.
+//
+// What bounds K6 on an H100: at DDD17's batch (160 x 32k events,
+// 5 x 260 x 346) it must read 17 B a raw event slot (87 MB) and write the
+// 288 MB grid (576 MB with separate_pol): 0.112 ms (0.198). Binning adds a
+// second read of the raw events and 16 B written and read again a kept
+// event: ~0.07 ms more. Its first design, one thread an event slot with
+// two f32 atomicAdds into a zero-filled grid behind some 20 elementwise
+// preparation passes in its wrapper, took 7-11x the bound.
 //
 // Both compute in f32, in the plain versions' product order; the TPU
 // kernels' one-hot matrices multiplied in bf16 on the matrix unit are not
@@ -85,24 +100,57 @@ constexpr int kSlice = kThreads * kPerThread;  // events a block
 constexpr int kCategories = 4;                 // interior, down, both, right
 constexpr int kRankBits = 11;                  // kSlice = 1 << kRankBits
 
-// The slot of an event within its window (home tile * 4 + category), or
-// -1 when none of its corners is in the frame; ops/tile_splat.event_slots.
-// rows and cols are powers of two (the plan halves them), given as shifts.
-__device__ __forceinline__ int event_slot(float x, float y, int height,
-                                          int width, int row_shift,
-                                          int col_shift, int tiles_x) {
-  if (!(x > -2.0f && x < (float)width && y > -2.0f && y < (float)height))
-    return -1;
-  const int x0 = (int)x, y0 = (int)y;
-  const int tile =
-      (max(y0, 0) >> row_shift) * tiles_x + (max(x0, 0) >> col_shift);
-  const bool right = x0 >= 0 && x0 + 1 < width &&
-                     ((x0 + 1) & ((1 << col_shift) - 1)) == 0;
-  const bool down = y0 >= 0 && y0 + 1 < height &&
-                    ((y0 + 1) & ((1 << row_shift) - 1)) == 0;
-  const int cat = right ? (down ? 2 : 3) : (down ? 1 : 0);
-  return tile * kCategories + cat;
-}
+// The frame and the tiles, for a binning rule. rows and cols are powers of
+// two (the plan halves them), given as shifts.
+struct TileGrid {
+  int height, width, row_shift, col_shift, tiles_x;
+};
+
+// K5's binning rule. slot(): an event's slot within its window (home tile
+// * 4 + category), or -1 when none of its corners is in the frame
+// (ops/tile_splat.event_slots). value(): v = 2p - 1. A window's dt is
+// replaced by 1 unless positive.
+struct TrilinearRule {
+  static constexpr bool kPositiveDt = true;
+  TileGrid g;
+
+  __device__ __forceinline__ int slot(float x, float y) const {
+    if (!(x > -2.0f && x < (float)g.width && y > -2.0f &&
+          y < (float)g.height))
+      return -1;
+    const int x0 = (int)x, y0 = (int)y;
+    const int tile = (max(y0, 0) >> g.row_shift) * g.tiles_x +
+                     (max(x0, 0) >> g.col_shift);
+    const bool right = x0 >= 0 && x0 + 1 < g.width &&
+                       ((x0 + 1) & ((1 << g.col_shift) - 1)) == 0;
+    const bool down = y0 >= 0 && y0 + 1 < g.height &&
+                      ((y0 + 1) & ((1 << g.row_shift) - 1)) == 0;
+    const int cat = right ? (down ? 2 : 3) : (down ? 1 : 0);
+    return tile * kCategories + cat;
+  }
+  __device__ __forceinline__ float value(float p) const {
+    return 2.0f * p - 1.0f;
+  }
+};
+
+// K6's: the tile of the pixel (trunc y, trunc x), one slot a tile, or -1
+// unless 0 <= x < W and 0 <= y < H on the float coordinates
+// (ops/tile_splat.pixel_slots); the polarity, 0 counted as -1; dt replaced
+// by 1 only where it is 0.
+struct PixelRule {
+  static constexpr bool kPositiveDt = false;
+  TileGrid g;
+
+  __device__ __forceinline__ int slot(float x, float y) const {
+    if (!(x >= 0.0f && x < (float)g.width && y >= 0.0f &&
+          y < (float)g.height))
+      return -1;
+    return ((int)y >> g.row_shift) * g.tiles_x + ((int)x >> g.col_shift);
+  }
+  __device__ __forceinline__ float value(float p) const {
+    return p == 0.0f ? -1.0f : p;
+  }
+};
 
 // Order-preserving unsigned keys of f32, so atomicMax finds a maximum and,
 // on the complemented key, a minimum; 0 stands below every key.
@@ -144,12 +192,12 @@ struct RawEvents {
 // (a) Grid (ceil(k / kSlice), nw). tkeys[2w] gets the key of window w's
 // last valid time, tkeys[2w + 1] the complemented key of its first; both
 // and the counts start at 0.
+template <class Rule>
 __global__ void __launch_bounds__(kThreads)
 bin_count(const float* __restrict__ xs, const float* __restrict__ ys,
           const float* __restrict__ ts, const uint8_t* __restrict__ valid,
           int* __restrict__ counts, unsigned int* __restrict__ tkeys, int k,
-          int slots, int height, int width, int row_shift, int col_shift,
-          int tiles_x) {
+          int slots, Rule rule) {
   extern __shared__ int hist[];  // slots
   __shared__ float wmin[kWarps], wmax[kWarps];
   const int w = blockIdx.y;
@@ -163,8 +211,7 @@ bin_count(const float* __restrict__ xs, const float* __restrict__ ys,
     if (!ev.ok[j]) continue;
     tmin = fminf(tmin, ev.t[j]);
     tmax = fmaxf(tmax, ev.t[j]);
-    const int slot = event_slot(ev.x[j], ev.y[j], height, width, row_shift,
-                                col_shift, tiles_x);
+    const int slot = rule.slot(ev.x[j], ev.y[j]);
     if (slot >= 0) atomicAdd(&hist[slot], 1);
   }
 #pragma unroll
@@ -219,13 +266,14 @@ __device__ __forceinline__ void block_exclusive_scan(
   __syncthreads();
 }
 
-// (b) Grid (ceil(k / kSlice), nw): each kept event's (x, y, tn, v) to its
-// slot's run. A window's runs are laid out in slot order from w * k (a
+// (b) Grid (ceil(k / kSlice), nw): each kept event's (x, y, tn, value) to
+// its slot's run. A window's runs are laid out in slot order from w * k (a
 // window keeps at most its k events), so every block of the window
 // computes the window's offsets from the counts itself and the first one
 // writes them out. A block ranks its events per slot in shared memory and
 // reserves each slot's part of the run with one atomic on the cursor
 // (zero on entry).
+template <class Rule>
 __global__ void __launch_bounds__(kThreads)
 bin_scatter(const float* __restrict__ xs, const float* __restrict__ ys,
             const float* __restrict__ ps, const float* __restrict__ ts,
@@ -233,8 +281,7 @@ bin_scatter(const float* __restrict__ xs, const float* __restrict__ ys,
             const unsigned int* __restrict__ tkeys,
             const int* __restrict__ counts, long long* __restrict__ offsets,
             int* __restrict__ cursor, float4* __restrict__ binned, int k,
-            int slots, int bins, int height, int width, int row_shift,
-            int col_shift, int tiles_x) {
+            int slots, int bins, Rule rule) {
   extern __shared__ long long run[];  // slots int64, then slots int
   int* hist = reinterpret_cast<int*>(run + slots);
   __shared__ long long warp_sums[kWarps];
@@ -251,14 +298,12 @@ bin_scatter(const float* __restrict__ xs, const float* __restrict__ ys,
   const float t_last = key_float(tkeys[2 * w]);
   const float t_first = key_float(~tkeys[2 * w + 1]);
   float dt = t_last - t_first;
-  dt = dt > 0.0f ? dt : 1.0f;
+  if (Rule::kPositiveDt ? !(dt > 0.0f) : dt == 0.0f) dt = 1.0f;
   const float tb = (float)(bins - 1);
   int packed[kPerThread];
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
-    const int slot = ev.ok[j] ? event_slot(ev.x[j], ev.y[j], height, width,
-                                           row_shift, col_shift, tiles_x)
-                              : -1;
+    const int slot = ev.ok[j] ? rule.slot(ev.x[j], ev.y[j]) : -1;
     packed[j] =
         slot < 0 ? -1 : (slot << kRankBits) | atomicAdd(&hist[slot], 1);
   }
@@ -272,7 +317,7 @@ bin_scatter(const float* __restrict__ xs, const float* __restrict__ ys,
       binned[run[packed[j] >> kRankBits] +
              (packed[j] & ((1 << kRankBits) - 1))] =
           make_float4(ev.x[j], ev.y[j], tb * (ev.t[j] - t_first) / dt,
-                      2.0f * ev.p[j] - 1.0f);
+                      rule.value(ev.p[j]));
 }
 
 // Reads slot s of the binned events.
@@ -291,7 +336,8 @@ struct BinnedReader {
 
 // (c) Grid (tiles, nw): the tile-owner splat over the tile's own slots and
 // its neighbours' spills.
-__global__ void __launch_bounds__(kThreads)
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, tile_splat::kBinnedSplatBlocks)
 tri_tile_splat_binned(const float4* __restrict__ binned,
                       const long long* __restrict__ offsets,
                       const int* __restrict__ counts,
@@ -336,39 +382,78 @@ tri_tile_splat_binned(const float4* __restrict__ binned,
     segs.start[n] = len;
   }
   __syncthreads();
-  tile_splat::accumulate(acc, segs, BinnedReader{binned}, tile, bins,
-                         rows, pitch);
+  tile_splat::accumulate(acc, segs, BinnedReader{binned},
+                         tile_splat::Trilinear{bins}, tile, rows, pitch);
+  tile_splat::store_tile<kVec>(acc,
+                               out + (long long)w * bins * height * width,
+                               tile, bins, rows, pitch, height, width);
+}
+
+// K6's (c) Grid (tiles, nw): the tile-owner splat over the tile's own run
+// (slot w * tiles + tile), two time corners an event.
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, tile_splat::kBinnedSplatBlocks)
+bil_tile_splat_binned(const float4* __restrict__ binned,
+                      const long long* __restrict__ offsets,
+                      const int* __restrict__ counts,
+                      float* __restrict__ out, int bins, int separate_pol,
+                      int height, int width, int rows, int cols, int pitch,
+                      int tiles_x) {
+  extern __shared__ float4 dyn_smem[];
+  float* acc = reinterpret_cast<float*>(dyn_smem);
+  __shared__ tile_splat::Segs<1> segs;
+  const int w = blockIdx.y;
+  const int channels = separate_pol ? 2 * bins : bins;
+  const tile_splat::Tile tile =
+      tile_splat::tile_of(blockIdx.x, rows, cols, tiles_x, height, width);
+  tile_splat::zero_tile(acc, channels * rows * pitch);
+  if (threadIdx.x == 0) {
+    const long long slot = (long long)w * gridDim.x + blockIdx.x;
+    segs.base[0] = offsets[slot];
+    segs.start[0] = 0;
+    segs.start[1] = counts[slot];
+    segs.box[0] = make_int4(tile.c0, tile.c1, tile.r0, tile.r1);
+    segs.n = 1;
+  }
   __syncthreads();
-  tile_splat::store_tile(acc, out + (long long)w * bins * height * width,
-                         tile, bins, rows, pitch, height, width);
+  tile_splat::accumulate(acc, segs, BinnedReader{binned},
+                         tile_splat::BilinearT{bins, separate_pol != 0},
+                         tile, rows, pitch);
+  tile_splat::store_tile<kVec>(
+      acc, out + (long long)w * channels * height * width, tile, channels,
+      rows, pitch, height, width);
 }
 
-__global__ void __launch_bounds__(kThreads)
-bil_splat_events(const float* __restrict__ xs, const float* __restrict__ ys,
-                 const float* __restrict__ tns, const float* __restrict__ pols,
-                 float* __restrict__ out, long long n, int k, int bins,
-                 int separate_pol, int height, int width) {
-  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= n) return;
-  const float tn = tns[s], pol = pols[s];
-  if (!(tn >= 0.0f && tn < (float)bins && pol != 0.0f)) return;
-  const int xi = (int)xs[s], yi = (int)ys[s];
-  // the TPU kernel's one-hot columns span the frame only
-  if (xi < 0 || xi >= width || yi < 0 || yi >= height) return;
-  const int ti = (int)tn;
-  const float dts = tn - (float)ti;
-  const int cout = separate_pol ? 2 * bins : bins;
-  const float sign = separate_pol ? 1.0f : pol;
-  const int ch = (separate_pol && !(pol > 0.0f)) ? bins + ti : ti;
-  const long long plane = (long long)height * width;
-  float* cell = out + ((s / k) * cout + ch) * plane +
-                (long long)yi * width + xi;
-  atomicAdd(cell, sign * (1.0f - dts));
-  if (ti + 1 < bins) atomicAdd(cell + plane, sign * dts);
-}
-
-unsigned int blocks_for(long long n) {
-  return (unsigned int)((n + kThreads - 1) / kThreads);
+// The binning passes (a) and (b) under `Rule`: x, y, p, t f32 and valid
+// bool, nw * k slots each; counts and cursor (slots_w * nw int32 each) and
+// tkeys (2 * nw uint32) zero on entry; offsets slots_w * nw int64; binned
+// room for nw * k float4. rows and cols are powers of two.
+template <class Rule>
+int bin_events(const void* x, const void* y, const void* p, const void* t,
+               const void* valid, void* counts, void* cursor, void* tkeys,
+               void* offsets, void* binned, int nw, int k, int bins,
+               int height, int width, int rows, int cols, int tiles_x,
+               int slots_w, int count_smem, int scatter_smem,
+               void* stream) {
+  if (nw <= 0 || k <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((k + kSlice - 1) / kSlice, nw);
+  const Rule rule{TileGrid{height, width, __builtin_ctz(rows),
+                           __builtin_ctz(cols), tiles_x}};
+  cudaError_t err = tile_splat::allow_smem(bin_count<Rule>, count_smem);
+  if (err == cudaSuccess)
+    err = tile_splat::allow_smem(bin_scatter<Rule>, scatter_smem);
+  if (err != cudaSuccess) return (int)err;
+  bin_count<Rule><<<grid, kThreads, count_smem, st>>>(
+      (const float*)x, (const float*)y, (const float*)t,
+      (const uint8_t*)valid, (int*)counts, (unsigned int*)tkeys, k, slots_w,
+      rule);
+  bin_scatter<Rule><<<grid, kThreads, scatter_smem, st>>>(
+      (const float*)x, (const float*)y, (const float*)p, (const float*)t,
+      (const uint8_t*)valid, (const unsigned int*)tkeys, (const int*)counts,
+      (long long*)offsets, (int*)cursor, (float4*)binned, k, slots_w, bins,
+      rule);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -378,36 +463,30 @@ unsigned int blocks_for(long long n) {
 // geometry (rows, cols, pitch, tiles, tiles_x) and the shared-memory bytes
 // are the tile plan's (openess_tpu_torch/ops/tile_splat.py).
 //
-// K5's passes (a) and (b): x, y, p, t f32 and valid bool, nw * k slots
-// each; counts and cursor (slots_w * nw int32 each) and tkeys (2 * nw
-// uint32) zero on entry; offsets slots_w * nw int64; binned room for
-// nw * k float4. rows and cols are powers of two.
+// K5's and K6's passes (a) and (b), as bin_events above; K5's slots are
+// (window, tile, category), K6's (window, tile).
 extern "C" int bin_events_trilinear(
     const void* x, const void* y, const void* p, const void* t,
     const void* valid, void* counts, void* cursor, void* tkeys,
     void* offsets, void* binned, int nw, int k, int bins, int height,
     int width, int rows, int cols, int tiles_x, int slots_w, int count_smem,
     int scatter_smem, void* stream) {
-  if (nw <= 0 || k <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((k + kSlice - 1) / kSlice, nw);
-  const int row_shift = __builtin_ctz(rows), col_shift = __builtin_ctz(cols);
-  static int allowed_count[64], allowed_scatter[64];
-  cudaError_t err =
-      tile_splat::allow_smem(bin_count, count_smem, allowed_count);
-  if (err == cudaSuccess)
-    err = tile_splat::allow_smem(bin_scatter, scatter_smem, allowed_scatter);
-  if (err != cudaSuccess) return (int)err;
-  bin_count<<<grid, kThreads, count_smem, st>>>(
-      (const float*)x, (const float*)y, (const float*)t,
-      (const uint8_t*)valid, (int*)counts, (unsigned int*)tkeys, k, slots_w,
-      height, width, row_shift, col_shift, tiles_x);
-  bin_scatter<<<grid, kThreads, scatter_smem, st>>>(
-      (const float*)x, (const float*)y, (const float*)p, (const float*)t,
-      (const uint8_t*)valid, (const unsigned int*)tkeys, (const int*)counts,
-      (long long*)offsets, (int*)cursor, (float4*)binned, k, slots_w, bins,
-      height, width, row_shift, col_shift, tiles_x);
-  return (int)cudaGetLastError();
+  return bin_events<TrilinearRule>(
+      x, y, p, t, valid, counts, cursor, tkeys, offsets, binned, nw, k,
+      bins, height, width, rows, cols, tiles_x, slots_w, count_smem,
+      scatter_smem, stream);
+}
+
+extern "C" int bin_events_bilinear_t(
+    const void* x, const void* y, const void* p, const void* t,
+    const void* valid, void* counts, void* cursor, void* tkeys,
+    void* offsets, void* binned, int nw, int k, int bins, int height,
+    int width, int rows, int cols, int tiles_x, int slots_w, int count_smem,
+    int scatter_smem, void* stream) {
+  return bin_events<PixelRule>(
+      x, y, p, t, valid, counts, cursor, tkeys, offsets, binned, nw, k,
+      bins, height, width, rows, cols, tiles_x, slots_w, count_smem,
+      scatter_smem, stream);
 }
 
 // K5's pass (c): out holds nw * bins * height * width floats, each written
@@ -417,29 +496,33 @@ extern "C" int splat_binned_trilinear(
     int nw, int bins, int height, int width, int rows, int cols, int pitch,
     int tiles, int tiles_x, int smem, void* stream) {
   if (nw <= 0) return 0;
-  static int allowed[64];
-  cudaError_t err = tile_splat::allow_smem(tri_tile_splat_binned, smem,
-                                           allowed);
-  if (err != cudaSuccess) return (int)err;
-  tri_tile_splat_binned<<<dim3(tiles, nw), kThreads, smem,
-                          (cudaStream_t)stream>>>(
-      (const float4*)binned, (const long long*)offsets, (const int*)counts,
-      (float*)out, bins, height, width, rows, cols, pitch, tiles_x);
-  return (int)cudaGetLastError();
+  return (int)tile_splat::with_store_vec(width, [&](auto vec) {
+    auto kernel = tri_tile_splat_binned<decltype(vec)::value>;
+    cudaError_t err = tile_splat::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(tiles, nw), kThreads, smem, (cudaStream_t)stream>>>(
+        (const float4*)binned, (const long long*)offsets,
+        (const int*)counts, (float*)out, bins, height, width, rows, cols,
+        pitch, tiles_x);
+    return cudaGetLastError();
+  });
 }
 
-// K6: pointers to nw * k prepared f32 event slots each; out must hold
-// nw * channels * height * width zeros (channels = bins, or 2 * bins with
-// separate_pol).
-extern "C" int voxelize_windows_bilinear_t(
-    const void* x, const void* y, const void* tn, const void* pol,
-    void* out, int nw, int k, int bins, int separate_pol, int height,
-    int width, void* stream) {
-  const long long n = (long long)nw * k;
-  if (n <= 0) return 0;
-  bil_splat_events<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (const float*)tn,
-      (const float*)pol, (float*)out, n, k, bins, separate_pol, height,
-      width);
-  return (int)cudaGetLastError();
+// K6's pass (c): out holds nw * channels * height * width floats
+// (channels = bins, or 2 * bins with separate_pol), each written once.
+extern "C" int splat_binned_bilinear_t(
+    const void* binned, const void* offsets, const void* counts, void* out,
+    int nw, int bins, int separate_pol, int height, int width, int rows,
+    int cols, int pitch, int tiles, int tiles_x, int smem, void* stream) {
+  if (nw <= 0) return 0;
+  return (int)tile_splat::with_store_vec(width, [&](auto vec) {
+    auto kernel = bil_tile_splat_binned<decltype(vec)::value>;
+    cudaError_t err = tile_splat::allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(tiles, nw), kThreads, smem, (cudaStream_t)stream>>>(
+        (const float4*)binned, (const long long*)offsets,
+        (const int*)counts, (float*)out, bins, separate_pol, height, width,
+        rows, cols, pitch, tiles_x);
+    return cudaGetLastError();
+  });
 }

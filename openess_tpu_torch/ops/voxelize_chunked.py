@@ -22,7 +22,8 @@ reproduced.
 pixels, weights ``1 - dts`` and ``dts`` into time bins ``ti`` and ``ti + 1``,
 signed by polarity or split into positive and negative channel blocks. On a
 CUDA tensor it launches the K4 kernel (same source file, replacing the TPU
-kernel ``_bil_kernel``); on a CPU tensor
+kernel ``_bil_kernel``), K1's tile owner with a two-corner splat, into a
+``torch.empty`` grid; on a CPU tensor
 :func:`voxelize_chunked_bilinear_t_plain`. Exact f32 as well: it differs
 from the TPU kernel by the bf16 rounding of the two time weights (about
 4e-3 relative) and from the exact scatter by f32 round-off.
@@ -30,6 +31,7 @@ from the TPU kernel by the bf16 rounding of the two time weights (about
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -338,6 +340,9 @@ def _launch(name: str, wire, grid, *ints):
     _check_wire(*wire)
     if not all(a.is_contiguous() for a in wire):
         raise ValueError("wire tensors must be contiguous")
+    if grid.data_ptr() % 16:
+        raise ValueError("grid must be 16-byte aligned: the tiles are "
+                         "written in vector stores")
     fn = _build.entry("voxelize_chunked.cu", name, *[ctypes.c_void_p] * 8,
                       *[ctypes.c_int] * (len(ints) + 1))
     _build.launch(fn, grid.device, *(a.data_ptr() for a in wire),
@@ -461,6 +466,42 @@ def voxelize_chunked_bilinear_t_plain(
     return out.view(nw, cout, height, width)
 
 
+def voxelize_chunked_bilinear_t_into(grid, xq, yq, pq, t_rel, counts,
+                                     tile_r0, t_range, *,
+                                     separate_pol: bool = True) -> None:
+    """Launch the K4 kernel on a CUDA wire into ``grid``, a contiguous f32
+    ``[NW, Cout, H, W]`` on the wire's card (``Cout = 2 * bins`` with
+    ``separate_pol``, else ``bins``), whatever it holds: the tile-owner
+    splat writes every cell once. What :func:`voxelize_chunked_bilinear_t`
+    runs on a CUDA wire, with the tile of ``tile_plan`` for ``Cout``
+    channels; a call here is not counted as a launch of K4."""
+    nw, cout, height, width = grid.shape
+    if (grid.dtype != torch.float32 or not grid.is_contiguous()
+            or grid.device != xq.device or nw != xq.shape[0]
+            or (separate_pol and cout % 2)):
+        raise ValueError("grid must be a contiguous f32 [NW, Cout, H, W] "
+                         "beside the wire")
+    _launch(
+        "voxelize_chunked_bilinear_t",
+        (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
+        nw, xq.shape[1], xq.shape[2], cout // 2 if separate_pol else cout,
+        int(separate_pol), height, width,
+        *_bilinear_t_constants(cout, height, width),
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_t_constants(cout: int, height: int, width: int) -> tuple:
+    """K4's launch constants for a ``[*, cout, height, width]`` grid: the
+    clamp's bounds and the tile plan. Kept per shape: the server launches
+    K4 once a window, where each microsecond of the wrapper's Python is
+    host latency."""
+    h_pad, w_pad = padded_grid_bilinear(height, width)
+    plan = tile_plan(cout, height, width)
+    return (h_pad - TILE_ROWS, w_pad - TILE_COLS, plan.rows, plan.cols,
+            plan.pitch, plan.tiles, plan.tiles_x, plan.smem_bytes)
+
+
 def voxelize_chunked_bilinear_t(
     xq, yq, pq, t_rel, counts, tile_r0, t_range,
     *, num_bins: int, height: int, width: int, separate_pol: bool = True,
@@ -473,8 +514,8 @@ def voxelize_chunked_bilinear_t(
     then negative polarity, when ``separate_pol``, else ``num_bins`` signed;
     ``normalize`` applies the biased nonzero normalization per window.
 
-    A CUDA wire launches the K4 kernel and counts the launch in
-    ``voxelize_chunked_bilinear_t.launches``; a CPU wire runs
+    A CUDA wire launches the K4 kernel (the tile-owner splat) and counts
+    the launch in ``voxelize_chunked_bilinear_t.launches``; a CPU wire runs
     :func:`voxelize_chunked_bilinear_t_plain`.
     """
     dev = xq.device
@@ -484,18 +525,13 @@ def voxelize_chunked_bilinear_t(
             height=height, width=width, separate_pol=separate_pol,
         )
     elif dev.type == "cuda":
-        nw, nbc, e = xq.shape
         cout = 2 * num_bins if separate_pol else num_bins
-        h_pad, w_pad = padded_grid_bilinear(height, width)
-        grid = torch.zeros(
-            (nw, cout, height, width), dtype=torch.float32, device=dev
-        )
-        _launch(
-            "voxelize_chunked_bilinear_t",
-            (xq, yq, pq, t_rel, counts, tile_r0, t_range), grid,
-            nw, nbc, e, num_bins, int(separate_pol), height, width,
-            h_pad - TILE_ROWS, w_pad - TILE_COLS,
-        )
+        # every cell is written once by the tile that owns it: no fill
+        grid = torch.empty((xq.shape[0], cout, height, width),
+                           dtype=torch.float32, device=dev)
+        voxelize_chunked_bilinear_t_into(
+            grid, xq, yq, pq, t_rel, counts, tile_r0, t_range,
+            separate_pol=separate_pol)
         voxelize_chunked_bilinear_t.launches += 1
     else:
         raise ValueError(f"unsupported device for K4: {dev}")

@@ -9,14 +9,13 @@ W]`` f32. On a CUDA tensor the wrapper launches its kernels from
 ``.launches``; on a CPU tensor it runs its plain version, the exact scatter
 of ``ops/voxelize.py``. Any other device raises.
 
-K5 reads the raw events: its passes bin them by output tile on the card
-(:func:`bin_events_trilinear`, held to :func:`bin_events_trilinear_plain`)
-and a tile-owner splat writes every cell of the grid once
-(:func:`splat_binned_trilinear_plain` is that splat in PyTorch). K6's
-wrapper prepares the events as the JAX wrapper does around its
-``pallas_call`` (per-window time normalization over the valid events;
-padding routed out of every corner) and scatters them into a zero-filled
-grid.
+Both read the raw events: their passes bin them by output tile on the card
+(:func:`bin_events_trilinear`, :func:`bin_events_bilinear_t`, held to
+their ``_plain`` versions) and a tile-owner splat writes every cell of the
+grid once, so the grid is a ``torch.empty`` and the wrappers run no
+elementwise pass over the events (``splat_binned_*_plain`` are those
+splats in PyTorch). K5 bins each event under its home tile and one of four
+spill categories; K6's events touch one pixel, so one slot a tile.
 
 The TPU kernels multiply one-hot matrices in bf16 on the matrix unit; the
 port's kernels splat in exact f32, as K1 and K4 do. They differ from the
@@ -32,6 +31,7 @@ import torch
 from openess_tpu_torch.ops.tile_splat import (
     TilePlan,
     event_slots,
+    pixel_slots,
     reader_tiles,
     tile_plan,
 )
@@ -40,9 +40,6 @@ from openess_tpu_torch.ops.voxelize import (
     voxel_grid_bilinear_t,
     voxelize_windows_trilinear,
 )
-
-PAD = -4.0  # coordinate and time marker that no corner of the grid reaches
-
 
 def _check_events(x, y, p, t, valid, num_windows: int) -> int:
     """Validate the flat event arrays; return the events per window."""
@@ -73,10 +70,29 @@ def _launch(name: str, tensors, device, *ints):
 
 
 def _raw_events(x, y, p, t, valid):
-    """The raw events as K5's passes read them: contiguous f32 ``x, y, p,
-    t`` (cast where they are not) and the bool ``valid``."""
+    """The raw events as the binning passes read them: contiguous f32
+    ``x, y, p, t`` (cast where they are not) and the bool ``valid``."""
     return (*(a.to(torch.float32).contiguous() for a in (x, y, p, t)),
             valid.contiguous())
+
+
+def _binned_plain(xs, ys, tn, v, slot, keep, plan: TilePlan):
+    """The binning passes' result from ``[NW, K]`` records ``(xs, ys, tn,
+    v)``, each record's slot within its window and whether it is kept:
+    ``(counts, offsets, binned)``, window ``w``'s runs in slot order from
+    ``w * K``, each run in the events' own order."""
+    nw, k = xs.shape
+    win = torch.arange(nw, device=xs.device)[:, None]
+    slot = (win * plan.slots_per_window + slot)[keep].long()
+    counts = torch.bincount(slot, minlength=plan.slots(nw)).int()
+    per_window = counts.view(nw, -1).long()
+    offsets = (torch.cumsum(per_window, 1) - per_window
+               + torch.arange(nw, device=xs.device)[:, None] * k).reshape(-1)
+    order = torch.argsort(slot, stable=True)
+    binned = torch.zeros((nw * k, 4), dtype=torch.float32, device=xs.device)
+    binned[binned_rows(counts, offsets)[0]] = \
+        torch.stack((xs, ys, tn, v), -1)[keep][order]
+    return counts, offsets, binned
 
 
 def bin_events_trilinear_plain(x, y, p, t, valid, *, num_windows: int,
@@ -96,23 +112,12 @@ def bin_events_trilinear_plain(x, y, p, t, valid, *, num_windows: int,
     is any order, here it is the events' own."""
     nw = num_windows
     vs = valid.reshape(nw, -1)
-    k = vs.shape[1]
     xs, ys = x.float().reshape(nw, -1), y.float().reshape(nw, -1)
-    tn = _normalized_times(t.reshape(nw, -1), vs, plan.bins, positive_dt=True)
+    tn = _normalized_times(t.reshape(nw, -1), vs, plan.channels,
+                           positive_dt=True)
     v = 2.0 * p.float().reshape(nw, -1) - 1.0
     slot, keep = event_slots(xs, ys, plan)
-    keep &= vs
-    win = torch.arange(nw, device=x.device)[:, None]
-    slot = (win * plan.slots_per_window + slot)[keep].long()
-    counts = torch.bincount(slot, minlength=plan.slots(nw)).int()
-    per_window = counts.view(nw, -1).long()
-    offsets = (torch.cumsum(per_window, 1) - per_window
-               + torch.arange(nw, device=x.device)[:, None] * k).reshape(-1)
-    order = torch.argsort(slot, stable=True)
-    binned = torch.zeros((nw * k, 4), dtype=torch.float32, device=x.device)
-    binned[binned_rows(counts, offsets)[0]] = \
-        torch.stack((xs, ys, tn, v), -1)[keep][order]
-    return counts, offsets, binned
+    return _binned_plain(xs, ys, tn, v, slot, keep & vs, plan)
 
 
 def binned_rows(counts, offsets):
@@ -134,7 +139,7 @@ def splat_binned_trilinear_plain(counts, offsets, binned, *,
     its own slots and at its neighbours' spill categories
     (``ops/tile_splat.reader_tiles``), the corners inside the tile. Returns
     ``[num_windows * bins, H, W]`` f32."""
-    C, H, W = plan.bins, plan.height, plan.width
+    C, H, W = plan.channels, plan.height, plan.width
     rows, slot = binned_rows(counts, offsets)
     win, slot = slot // plan.slots_per_window, slot % plan.slots_per_window
     x, y, tn, v = binned[rows].unbind(-1)
@@ -169,11 +174,13 @@ def splat_binned_trilinear(counts, offsets, binned, grid, *,
     holds (the tile-owner splat writes every cell once). A call here is not
     counted as a launch of K5."""
     if (grid.dtype != torch.float32 or not grid.is_contiguous()
-            or tuple(grid.shape) != (num_windows * plan.bins, plan.height,
-                                     plan.width)):
-        raise ValueError("grid must be a contiguous f32 [NW * bins, H, W]")
+            or tuple(grid.shape) != (num_windows * plan.channels,
+                                     plan.height, plan.width)
+            or grid.data_ptr() % 16):
+        raise ValueError("grid must be a contiguous, 16-byte aligned f32 "
+                         "[NW * bins, H, W]")
     _launch("splat_binned_trilinear", (binned, offsets, counts, grid),
-            grid.device, num_windows, plan.bins, plan.height, plan.width,
+            grid.device, num_windows, plan.channels, plan.height, plan.width,
             plan.rows, plan.cols, plan.pitch, plan.tiles, plan.tiles_x,
             plan.smem_bytes)
 
@@ -195,6 +202,15 @@ def bin_events_trilinear(x, y, p, t, valid, *, num_windows: int,
                                           plan=plan)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device for K5: {dev}")
+    return _bin_events("bin_events_trilinear", (x, y, p, t, valid), nw, k,
+                       num_bins, plan)
+
+
+def _bin_events(entry: str, events, nw: int, k: int, num_bins: int,
+                plan: TilePlan):
+    """Launch the binning passes ``entry`` on the card's raw events:
+    ``(counts, offsets, binned)`` as the ``_plain`` versions return them."""
+    dev = events[0].device
     slots = plan.slots(nw)
     # the counts, the scatter's cursors and the windows' time keys start at
     # zero: 0.8 MB at DSEC's 160 windows, one fill
@@ -202,30 +218,120 @@ def bin_events_trilinear(x, y, p, t, valid, *, num_windows: int,
     counts = scratch[:slots]
     offsets = torch.empty(slots, dtype=torch.int64, device=dev)
     binned = torch.empty((nw * k, 4), dtype=torch.float32, device=dev)
-    _launch("bin_events_trilinear",
-            (*_raw_events(x, y, p, t, valid), counts, scratch[slots:2 * slots],
+    _launch(entry,
+            (*_raw_events(*events), counts, scratch[slots:2 * slots],
              scratch[2 * slots:], offsets, binned),
-            dev, nw, k, num_bins, height, width, plan.rows, plan.cols,
-            plan.tiles_x, plan.slots_per_window, plan.count_smem_bytes,
-            plan.scatter_smem_bytes)
+            dev, nw, k, num_bins, plan.height, plan.width, plan.rows,
+            plan.cols, plan.tiles_x, plan.slots_per_window,
+            plan.count_smem_bytes, plan.scatter_smem_bytes)
     return counts, offsets, binned
 
 
-def bilinear_t_events(x, y, p, t, valid, num_windows: int, num_bins: int,
-                      height: int, width: int):
-    """The four ``[num_windows, K]`` f32 arrays K6 reads, made as the JAX
-    wrapper makes them: ``x, y``, the normalized time and the polarity
-    (0 counted as -1), validity and the frame folded into the markers
-    (polarity 0, ``PAD`` elsewhere)."""
-    nw, C = num_windows, num_bins
+def bilinear_t_plan(num_bins: int, height: int, width: int,
+                    separate_pol: bool) -> TilePlan:
+    """K6's tile plan: ``Cout`` channels (``2 * num_bins`` with
+    ``separate_pol``), one binning slot a tile."""
+    return tile_plan(2 * num_bins if separate_pol else num_bins, height,
+                     width, categories=1)
+
+
+def bin_events_bilinear_t_plain(x, y, p, t, valid, *, num_windows: int,
+                                num_bins: int, plan: TilePlan):
+    """K6's binning passes (count, scatter) in PyTorch, the function the
+    card's passes are held to.
+
+    Returns ``(counts, offsets, binned)`` as
+    :func:`bin_events_trilinear_plain` does, a slot being ``(window,
+    tile)`` (``ops/tile_splat.pixel_slots``) and a record ``(x, y, tn,
+    pol)``: ``tn`` the window's time normalization over its valid events,
+    in frame or not, with ``dt`` replaced by 1 only where it is 0 (DDD17's
+    rule), and ``pol`` the polarity with 0 counted as -1. Padding and events
+    whose float coordinates lie outside the frame are dropped."""
+    nw = num_windows
     vs = valid.reshape(nw, -1)
     xs, ys = x.float().reshape(nw, -1), y.float().reshape(nw, -1)
-    tn = _normalized_times(t.reshape(nw, -1), vs, C, positive_dt=False)
+    tn = _normalized_times(t.reshape(nw, -1), vs, num_bins,
+                           positive_dt=False)
     pol = p.float().reshape(nw, -1)
     pol = torch.where(pol == 0, -1.0, pol)
-    inb = vs & (xs >= 0) & (xs < width) & (ys >= 0) & (ys < height)
-    return (torch.where(inb, xs, PAD), torch.where(inb, ys, PAD),
-            torch.where(inb, tn, PAD), torch.where(inb, pol, 0.0))
+    slot, keep = pixel_slots(xs, ys, plan)
+    return _binned_plain(xs, ys, tn, pol, slot, keep & vs, plan)
+
+
+def bin_events_bilinear_t(x, y, p, t, valid, *, num_windows: int,
+                          num_bins: int, height: int, width: int,
+                          separate_pol: bool = True,
+                          plan: TilePlan | None = None):
+    """K6's binning: ``(counts, offsets, binned)`` as
+    :func:`bin_events_bilinear_t_plain` returns them, for the tiles of
+    ``bilinear_t_plan`` unless ``plan`` gives others. A CUDA tensor runs
+    the card's count and scatter passes; a CPU tensor the plain version.
+    Not counted as a launch of K6: :func:`voxelize_windows_bilinear_t_mxu`
+    is."""
+    nw = num_windows
+    k = _check_events(x, y, p, t, valid, nw)
+    plan = plan or bilinear_t_plan(num_bins, height, width, separate_pol)
+    dev = x.device
+    if dev.type == "cpu":
+        return bin_events_bilinear_t_plain(x, y, p, t, valid, num_windows=nw,
+                                           num_bins=num_bins, plan=plan)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device for K6: {dev}")
+    return _bin_events("bin_events_bilinear_t", (x, y, p, t, valid), nw, k,
+                       num_bins, plan)
+
+
+def splat_binned_bilinear_t_plain(counts, offsets, binned, *,
+                                  num_windows: int, num_bins: int,
+                                  separate_pol: bool,
+                                  plan: TilePlan) -> torch.Tensor:
+    """K6's splat pass in PyTorch: every tile adds, of the events binned at
+    its slot, the two time corners at their pixel, kept inside the tile
+    (``tile_splat.cuh``'s ``splat2_bilinear_t``). Returns ``[num_windows *
+    Cout, H, W]`` f32."""
+    C, H, W = num_bins, plan.height, plan.width
+    cout = 2 * C if separate_pol else C
+    rows, slot = binned_rows(counts, offsets)
+    win, tile = slot // plan.slots_per_window, slot % plan.slots_per_window
+    x, y, tn, v = binned[rows].unbind(-1)
+    xi, yi, ti = x.int(), y.int(), tn.int()  # trunc toward zero
+    r0 = (tile // plan.tiles_x) * plan.rows
+    c0 = (tile % plan.tiles_x) * plan.cols
+    ok = ((tn >= 0) & (xi >= c0) & (xi < torch.clamp(c0 + plan.cols, max=W))
+          & (yi >= r0) & (yi < torch.clamp(r0 + plan.rows, max=H)))
+    dts = tn - ti.float()
+    if separate_pol:
+        sign = torch.ones_like(v)
+        ch = torch.where(v > 0, ti, ti + C)
+    else:
+        sign, ch = v, ti
+    idx = ((win * cout + ch) * H + yi) * W + xi
+    out = torch.zeros(num_windows * cout * H * W, device=binned.device)
+    for dt, wt in ((0, sign * (1.0 - dts)), (1, sign * dts)):
+        keep = ok & (ti + dt < C)
+        out.index_put_(((idx + dt * H * W)[keep].long(),), wt[keep],
+                       accumulate=True)
+    return out.view(num_windows * cout, H, W)
+
+
+def splat_binned_bilinear_t(counts, offsets, binned, grid, *,
+                            num_windows: int, num_bins: int,
+                            separate_pol: bool, plan: TilePlan) -> None:
+    """K6's splat pass on the card: the binned events into ``grid``, a
+    contiguous f32 ``[num_windows * Cout, H, W]`` on their card, whatever it
+    holds (the tile-owner splat writes every cell once). A call here is not
+    counted as a launch of K6."""
+    cout = 2 * num_bins if separate_pol else num_bins
+    if (grid.dtype != torch.float32 or not grid.is_contiguous()
+            or tuple(grid.shape) != (num_windows * cout, plan.height,
+                                     plan.width)
+            or plan.channels != cout or grid.data_ptr() % 16):
+        raise ValueError("grid must be a contiguous, 16-byte aligned f32 "
+                         "[NW * Cout, H, W] of the plan's channels")
+    _launch("splat_binned_bilinear_t", (binned, offsets, counts, grid),
+            grid.device, num_windows, num_bins, int(separate_pol),
+            plan.height, plan.width, plan.rows, plan.cols, plan.pitch,
+            plan.tiles, plan.tiles_x, plan.smem_bytes)
 
 
 def voxelize_windows_trilinear_mxu(x, y, p, t, valid, *, num_windows: int,
@@ -276,13 +382,15 @@ def voxelize_windows_bilinear_t_mxu(x, y, p, t, valid, *, num_windows: int,
     ``separate_pol``, else ``num_bins`` signed: the layout of
     ``voxel_grid_bilinear_t`` over the windows.
 
-    A CUDA tensor launches K6 and counts it in
-    ``voxelize_windows_bilinear_t_mxu.launches``; a CPU tensor runs the
-    plain version :func:`ops.voxelize.voxel_grid_bilinear_t`. The two
-    agree wherever the coordinates are integers, as DDD17's are. An event
-    with ``x`` or ``y`` in (-1, 0) is dropped by the kernel's in-frame test
-    on the coordinate, as by the TPU wrapper, and kept at pixel 0 by the
-    exact scatter, which truncates first.
+    A CUDA tensor launches K6, the binning passes and the tile-owner
+    splat, which writes every cell once (the grid is a ``torch.empty``),
+    and counts one launch in ``voxelize_windows_bilinear_t_mxu.launches``;
+    a CPU tensor runs the plain version
+    :func:`ops.voxelize.voxel_grid_bilinear_t`. The two agree wherever the
+    coordinates are integers, as DDD17's are. An event with ``x`` or ``y``
+    in (-1, 0) is dropped by the binning's in-frame test on the coordinate,
+    as by the TPU wrapper, and kept at pixel 0 by the exact scatter, which
+    truncates first.
     """
     nw, C, H, W = num_windows, num_bins, height, width
     k = _check_events(x, y, p, t, valid, nw)
@@ -295,10 +403,12 @@ def voxelize_windows_bilinear_t_mxu(x, y, p, t, valid, *, num_windows: int,
         return g.reshape(nw * cout, H, W)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device for K6: {dev}")
-    grid = torch.zeros((nw * cout, H, W), dtype=torch.float32, device=dev)
-    events = bilinear_t_events(x, y, p, t, valid, nw, C, H, W)
-    _launch("voxelize_windows_bilinear_t", (*events, grid), dev,
-            nw, k, C, int(separate_pol), H, W)
+    plan = bilinear_t_plan(C, H, W, separate_pol)
+    binning = bin_events_bilinear_t(x, y, p, t, valid, num_windows=nw,
+                                    num_bins=C, height=H, width=W, plan=plan)
+    grid = torch.empty((nw * cout, H, W), dtype=torch.float32, device=dev)
+    splat_binned_bilinear_t(*binning, grid, num_windows=nw, num_bins=C,
+                            separate_pol=separate_pol, plan=plan)
     voxelize_windows_bilinear_t_mxu.launches += 1
     return grid
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K4_EDGE_CASES, k4_edge_wire
 from openess_tpu_torch.ops import lstm_gates as k3
 from openess_tpu_torch.ops import segment_pool as k2
 from openess_tpu_torch.ops import voxelize_chunked as k1
@@ -40,8 +41,10 @@ def _wire(rng, nw, k, H, W, t16):
 
 
 @pytest.mark.parametrize("t16", [False, True])
-@pytest.mark.parametrize("hw", [(48, 96), (37, 130)])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 130), (37, 151)])
 def test_k1_kernel_matches_plain(cuda, t16, hw):
+    """K1 through its wrapper and launched into a NaN-filled grid, at
+    widths that take each store width of the splat (16, 8 and 4 bytes)."""
     H, W = hw
     rng = np.random.default_rng(1205)
     wire = tuple(torch.from_numpy(np.asarray(a)).to(cuda)
@@ -50,9 +53,13 @@ def test_k1_kernel_matches_plain(cuda, t16, hw):
     got = k1.voxelize_chunked_trilinear(*wire, num_bins=5, height=H, width=W)
     ref = k1.voxelize_chunked_trilinear_plain(*wire, num_bins=5, height=H,
                                               width=W)
+    nan = torch.full_like(ref, float("nan"))
+    k1.voxelize_chunked_trilinear_into(nan, *wire)
     torch.cuda.synchronize()
     assert k1.voxelize_chunked_trilinear.launches == before + 1
-    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for out in (got, nan):
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -224,8 +231,11 @@ def _int_wire(rng, nw, k, H, W, t16):
 
 @pytest.mark.parametrize("separate_pol", [False, True])
 @pytest.mark.parametrize("t16", [False, True])
-@pytest.mark.parametrize("hw", [(48, 96), (37, 150), (260, 346)])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 150), (37, 151), (260, 346)])
 def test_k4_kernel_matches_plain(cuda, t16, hw, separate_pol):
+    """K4 (the tile owner) against its plain version through its wrapper
+    and launched into a NaN-filled grid: every cell is written, those of
+    the partial tiles at the frame's right and lower edges too."""
     H, W = hw
     rng = np.random.default_rng(1205)
     wire = tuple(torch.from_numpy(np.asarray(a)).to(cuda)
@@ -234,11 +244,45 @@ def test_k4_kernel_matches_plain(cuda, t16, hw, separate_pol):
     before = k1.voxelize_chunked_bilinear_t.launches
     got = k1.voxelize_chunked_bilinear_t(*wire, **kw)
     ref = k1.voxelize_chunked_bilinear_t_plain(*wire, **kw)
+    nan = torch.full_like(ref, float("nan"))
+    k1.voxelize_chunked_bilinear_t_into(nan, *wire,
+                                        separate_pol=separate_pol)
     torch.cuda.synchronize()
     assert k1.voxelize_chunked_bilinear_t.launches == before + 1
     assert got.shape == (3, 10 if separate_pol else 5, H, W)
     assert ref.abs().max() > 0
-    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for out in (got, nan):
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("separate_pol", [False, True])
+@pytest.mark.parametrize("t16", [False, True])
+@pytest.mark.parametrize("case", [c.replace(" ", "_")
+                                  for c in K4_EDGE_CASES])
+def test_k4_tile_splat_edge_cases(cuda, case, t16, separate_pol):
+    """K4 against its plain version on the wires a tile owner must not
+    assume away (``chip_smoke.k4_edge_wire``), through its wrapper and
+    launched into a NaN-filled grid."""
+    wire, H, W = k4_edge_wire(np.random.default_rng(1205),
+                              case.replace("_", " "), t16)
+    wire = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                 for a in wire)
+    kw = dict(num_bins=5, height=H, width=W, separate_pol=separate_pol)
+    ref = k1.voxelize_chunked_bilinear_t_plain(*wire, **kw)
+    got = k1.voxelize_chunked_bilinear_t(*wire, **kw)
+    nan = torch.full_like(ref, float("nan"))
+    before = k1.voxelize_chunked_bilinear_t.launches
+    k1.voxelize_chunked_bilinear_t_into(nan, *wire,
+                                        separate_pol=separate_pol)
+    torch.cuda.synchronize()
+    assert k1.voxelize_chunked_bilinear_t.launches == before
+    assert ref.abs().max() > 0
+    for out in (got, nan):
+        assert torch.isfinite(out).all()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    if case == "empty_window":
+        assert not got[1].any() and not nan[1].any()
 
 
 def _k1_edge_wire(rng, case, t16):
@@ -313,7 +357,7 @@ def _sorted_within_slots(counts, offsets, binned):
 
 
 @pytest.mark.parametrize("hw,nw", [((48, 96), 3), ((100, 150), 3),
-                                   ((480, 640), 8)])
+                                   ((37, 151), 3), ((480, 640), 8)])
 def test_k5_binning_and_splat_match_plain(cuda, hw, nw):
     """K5's passes on the card: the counts and offsets exactly, each slot's
     events as a multiset, and the splat into a NaN-filled grid against the
@@ -365,7 +409,7 @@ def _grid_events(rng, nw, k, H, W, case, integer):
 
 
 @pytest.mark.parametrize("case", ["dense", "edges"])
-@pytest.mark.parametrize("hw", [(48, 96), (37, 130), (480, 640)])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 130), (37, 151), (480, 640)])
 def test_k5_kernel_matches_plain(cuda, hw, case):
     """K5 against the exact scatter on the card: 1e-5 of the grid max
     (atomics order); a window of padding only stays exactly zero."""
@@ -388,7 +432,7 @@ def test_k5_kernel_matches_plain(cuda, hw, case):
 
 @pytest.mark.parametrize("separate_pol", [False, True])
 @pytest.mark.parametrize("case", ["dense", "edges"])
-@pytest.mark.parametrize("hw", [(48, 96), (260, 346)])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 150), (37, 151), (260, 346)])
 def test_k6_kernel_matches_plain(cuda, hw, case, separate_pol):
     H, W = hw
     nw, k = 3, 5000
@@ -407,6 +451,43 @@ def test_k6_kernel_matches_plain(cuda, hw, case, separate_pol):
     if case == "edges":
         assert not got[:cout].any()
         assert got[cout:2 * cout].abs().sum().item() == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("separate_pol", [False, True])
+@pytest.mark.parametrize("case", ["dense", "edges"])
+@pytest.mark.parametrize("hw", [(48, 96), (37, 150), (37, 151), (260, 346)])
+def test_k6_binning_and_splat_match_plain(cuda, hw, case, separate_pol):
+    """K6's passes on the card: the counts and offsets exactly, each
+    tile's events as a multiset, and the splat into a NaN-filled grid
+    against its plain version and the exact scatter (1e-5 of the max)."""
+    H, W = hw
+    nw, k = 3, 5000
+    ev = tuple(a.to(cuda) for a in _grid_events(
+        np.random.default_rng(1205), nw, k, H, W, case, True))
+    plan = k56.bilinear_t_plan(5, H, W, separate_pol)
+    kw = dict(num_windows=nw, num_bins=5)
+    counts, offsets, binned = k56.bin_events_bilinear_t(
+        *ev, **kw, height=H, width=W, separate_pol=separate_pol)
+    pc, po, pb = k56.bin_events_bilinear_t_plain(*ev, **kw, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, pc) and torch.equal(offsets, po)
+    assert torch.equal(_sorted_within_slots(counts, offsets, binned),
+                       _sorted_within_slots(pc, po, pb))
+    cout = 10 if separate_pol else 5
+    grid = torch.full((nw * cout, H, W), float("nan"), device=cuda)
+    k56.splat_binned_bilinear_t(counts, offsets, binned, grid, **kw,
+                                separate_pol=separate_pol, plan=plan)
+    plain = k56.splat_binned_bilinear_t_plain(
+        pc, po, pb, **kw, separate_pol=separate_pol, plan=plan)
+    ref = voxel_grid_bilinear_t(*(a.view(nw, k) for a in ev), num_bins=5,
+                                height=H, width=W,
+                                separate_pol=separate_pol).reshape(grid.shape)
+    torch.cuda.synchronize()
+    assert torch.isfinite(grid).all() and ref.abs().max() > 0
+    for want in (plain, ref):
+        assert (grid - want).abs().max() <= 1e-5 * ref.abs().max()
+    if case == "edges":
+        assert not grid[:cout].any()
 
 
 @pytest.mark.parametrize("dataset", ["DSEC", "DDD17"])

@@ -166,7 +166,8 @@ def test_kernel_sources_are_in_the_package():
     """Each CUDA kernel's source is a file of the package (built at first
     use from there), its C entries are there, and its wrapper names it;
     K1 and K4 share a source, as K5 and K6 do, and K3's forward and
-    backward; K1 and K5 include the tile-owner splat's header. No Triton
+    backward; all four voxelizers (K1, K4, K5, K6) include the tile-owner
+    splat's header. No Triton
     kernel is left: the port needs no ``triton``."""
     entries = {
         "voxelize_chunked.cu": ("ops/voxelize_chunked.py",
@@ -176,7 +177,8 @@ def test_kernel_sources_are_in_the_package():
         "voxelize_grid.cu": ("ops/voxelize_mxu.py",
                              ("bin_events_trilinear",
                               "splat_binned_trilinear",
-                              "voxelize_windows_bilinear_t")),
+                              "bin_events_bilinear_t",
+                              "splat_binned_bilinear_t")),
         "lstm_gates.cu": ("ops/lstm_gates.py",
                           ("lstm_gates_forward", "lstm_gates_backward")),
     }

@@ -194,41 +194,39 @@ def test_k6_wrapper_drops_fractional_negative_pixels_as_the_tpu_path(rng):
 
 @pytest.mark.parametrize("kernel", ["K5", "K6"])
 def test_prepared_events_route_padding_out_of_the_grid(rng, kernel):
-    """What the CUDA kernels read. K6's wrapper prepares the events as the
-    JAX wrapper does before its ``pallas_call``: valid events keep their
-    coordinates and get times normalized per window into [0, C - 1];
-    padding (and events outside the frame) carries polarity 0 and the PAD
-    marker, which no corner of the grid reaches. K5's binning (its plain
-    version, run on a CPU tensor) drops padding instead and keeps each
-    valid event once, with the same coordinates and normalized times."""
+    """What the CUDA kernels read: the binning passes (their plain
+    versions, run on a CPU tensor) drop padding and keep each valid event
+    once, with its coordinates and its time normalized per window into
+    [0, C - 1]. K5 keeps every event with a corner in the frame and
+    ``v = 2p - 1``; K6 keeps the events whose coordinates lie in the frame,
+    as the JAX wrapper's in-frame test does, and the polarity with 0
+    counted as -1."""
     x, y, p, t, valid = _tri_events(rng, "padding")
+    kw = dict(num_windows=NW, num_bins=C, height=H, width=W)
     if kernel == "K5":
         counts, offsets, binned = tmxu.bin_events_trilinear(
-            *_t(x, y, p, t, valid), num_windows=NW, num_bins=C, height=H,
-            width=W)
-        n = int(valid.sum())  # every valid event has a corner in the frame
-        assert binned.shape == (NW * 700, 4) and binned.dtype == torch.float32
-        assert int(counts.sum()) == n
-        assert not counts[:counts.numel() // NW].any()  # window 0: padding
-        rows, _ = tmxu.binned_rows(counts, offsets)
-        xs, ys, tn, v = binned[rows].unbind(-1)
+            *_t(x, y, p, t, valid), **kw)
+        keep = valid  # every valid event has a corner in the frame
+    else:
+        counts, offsets, binned = tmxu.bin_events_bilinear_t(
+            *_t(x, y, p, t, valid), **kw)
+        keep = valid & (x >= 0) & (x < W) & (y >= 0) & (y < H)
+    assert binned.shape == (NW * 700, 4) and binned.dtype == torch.float32
+    assert int(counts.sum()) == int(keep.sum())
+    assert not counts[:counts.numel() // NW].any()  # window 0: padding
+    rows, _ = tmxu.binned_rows(counts, offsets)
+    xs, ys, tn, v = binned[rows].unbind(-1)
+    np.testing.assert_array_equal(np.sort(xs.numpy()), np.sort(x[keep]))
+    if kernel == "K5":
         np.testing.assert_array_equal(v.abs().numpy(), 1.0)
-        np.testing.assert_array_equal(np.sort(xs.numpy()), np.sort(x[valid]))
         # the window's ends
         assert tn.min() == 0.0 and tn.max() == C - 1
-        return
-    xs, ys, tn, v = tmxu.bilinear_t_events(*_t(x, y, p, t, valid), NW, C,
-                                           H, W)
-    keep = torch.from_numpy(valid & (x >= 0) & (x < W) & (y >= 0)
-                            & (y < H)).view(NW, -1)
-    assert set(v[keep].unique().tolist()) == {-1.0, 1.0}
-    assert all(a.shape == (NW, 700) and a.dtype == torch.float32
-               for a in (xs, ys, tn, v))
-    assert not v[~keep].any()
-    assert (xs[~keep] == tmxu.PAD).all() and (tn[~keep] == tmxu.PAD).all()
-    np.testing.assert_array_equal(xs[keep].numpy(), x.reshape(NW, -1)[
-        keep.numpy()])
-    assert tn[keep].min() >= 0.0 and tn[keep].max() <= C - 1
+    else:
+        assert set(v.unique().tolist()) == {-1.0, 1.0}
+        np.testing.assert_array_equal(
+            np.sort(v.numpy()), np.sort(np.where(p[keep] == 0, -1.0,
+                                                 p[keep])))
+        assert tn.min() >= 0.0 and tn.max() <= C - 1
 
 
 def test_wrappers_check_their_inputs():
