@@ -40,6 +40,23 @@ DDD17, once per batch:
   with numpy and PIL: ``build_datasets`` -> ``train_epoch`` ->
   ``val_epoch``.
 
+Then the frame/recon workloads, the DeepLabV3-ResNet50 student (output
+stride 16, train-mode BatchNorm, ``student_fold_bn`` in eval) at the same
+440x640, B = 8, bf16, 11 classes, each through ``Trainer`` on one
+synthetic batch (random frames and reconstructions, block superpixels and
+labels):
+
+- T8-pretrain-recon (``configs/pretrain/DSEC/frame2recon_fcclip_slic.yaml``:
+  the student against the frame teacher, NCE through K2 on the student's
+  f32 features and the teacher's, dense CLIP, augmentation on), then
+  ``val_epoch`` with the folded trunk and a checkpoint;
+- F8-finetune-recon (``configs/finetunes/DSEC/slic/
+  frame2recon_fcclip_slic_100.yaml`` as shipped) from that checkpoint;
+- U8-uda-recon (``configs/linear_probe/DSEC/frame2recon_fcclip_sam.yaml``
+  as shipped: UDA with two students);
+- an f32 reference of the pretrain ``frame2recon`` step, CUDA against the
+  CPU, at 64x96.
+
 The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is.
 
@@ -65,7 +82,9 @@ probe, DDD17 serving, K5 vs plain (NW = 160, its binning passes against
 theirs, its splat into a NaN-filled grid, edge cases), K6 vs plain
 (NW = 160, both polarity modes, its binning passes against theirs, its
 splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer,
-the DDD17 linear probe from disk, and the summary. K1, K4, K5 and K6 are
+the DDD17 linear probe from disk, T8-pretrain-recon, F8-finetune-recon,
+U8-uda-recon (each with its trace, spans and K2's time), the
+``frame2recon`` reference, and the summary. K1, K4, K5 and K6 are
 the tile-owner splats of ``csrc/tile_splat.cuh``. The kernels'
 launch counters are zeroed before each main-path run and read after it. Any
 failure raises and the script exits non-zero. The last line is ``{"ok":
@@ -100,6 +119,7 @@ TRAIN_GRAD_REL_TOL = 1e-3   # ... gradients of the head's plain convs
 TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
 TRAIN_STEPS = 8             # train steps driven on the flagship batch
 DOWNSTREAM_STEPS = 6        # ... on the fine-tune and linear-probe batches
+RECON_DOWNSTREAM_STEPS = 5  # ... on the frame2recon fine-tune and UDA
 K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
                             # in the last bits between kernel and PyTorch and
                             # 1 - tanh^2, 1 - g^2 cancel, so the error of a
@@ -107,6 +127,9 @@ K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
 K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
 K56_REL_TOL = 1e-5          # K5, K6 vs plain, of max|plain|: atomics order
 GRID_STEPS = 3              # train steps through the grid-wire loaders
+RECON_GRAD_L2_TOL = 6e-2    # f32 frame2recon step, CUDA vs CPU, each
+                            # gradient tensor's relative L2 error
+RECON_GRAD_MEDIAN_TOL = 1e-2  # ... its median over the tensors
 
 
 def flagship_settings(**overrides):
@@ -181,6 +204,31 @@ def ddd17_probe_settings(**overrides):
         superpixel_sources="sp_slic_rgb", superpixel_size=25,
         if_linear_probing=True, compute_dtype="bfloat16",
     )
+    return dataclasses.replace(s, **overrides)
+
+
+def recon_pretrain_settings(**overrides):
+    """``configs/pretrain/DSEC/frame2recon_fcclip_slic.yaml``, built in
+    code: the flagship YAML with the DeepLabV3 student on
+    reconstructions."""
+    log_dir = "log/pretrain_frame2recon_fcclip_slic"
+    s = flagship_settings(config_option="frame2recon", log_dir=log_dir,
+                          ckpt_dir=os.path.join(log_dir, "checkpoints"))
+    return dataclasses.replace(s, **overrides)
+
+
+def uda_recon_settings(**overrides):
+    """``configs/linear_probe/DSEC/frame2recon_fcclip_sam.yaml`` as
+    shipped, built in code: its ``if_linear_probing`` sits outside the
+    ``clip`` section, so it dispatches to UDA (the ``openess`` task) on
+    ``frame2recon``, with the contrastive and dense-CLIP losses off."""
+    log_dir = "log/linear_prob_frame2recon_fcclip_sam"
+    s = flagship_settings(
+        config_option="frame2recon", log_dir=log_dir,
+        ckpt_dir=os.path.join(log_dir, "checkpoints"),
+        pretrained_backbone="*********************", if_pretraining=False,
+        superpixel_sources="sp_sam_rgb", if_spatial_contrastive=False,
+        if_dense_clip_supervision=False)
     return dataclasses.replace(s, **overrides)
 
 
@@ -311,10 +359,12 @@ def block_superpixels(b, h, w, rows=10, cols=10):
 
 
 def k2_phase(torch, k2, dev, flush):
-    """K2 against its plain version at the train step's shape, on block
-    superpixels and on per-pixel random ids, bf16 and f32; the backward
-    gather against autograd of the plain version. Returns the kernel row
-    (bf16, block superpixels: what the train step launches)."""
+    """K2 against its plain version at the train steps' shape, on block
+    superpixels and on per-pixel random ids, bf16 (the voxel pretrain's
+    features and the teacher's) and f32 (the DeepLabV3 student's features
+    on pretrain ``frame2recon``); the backward gather against autograd of
+    the plain version. Returns the kernel row (bf16, block superpixels,
+    with the f32 times beside)."""
     phase("K2 segment_pool_sums vs plain ([8,440,640,256], S=800)")
     B, H, W, D, S = 8, 440, 640, 256, 100
     gen = torch.Generator(device=dev).manual_seed(1205)
@@ -402,8 +452,10 @@ def k2_phase(torch, k2, dev, flush):
         replaces="openess_tpu/ops/segment_pool.py:82",
         max_abs_err=worst,
         check=f"ok: max|kernel-plain| <= {K2_REL_TOL:g} x max|plain|, counts "
-              "equal; bf16 and f32, block and random ids; ms is bf16 on "
-              "block superpixels", **row,
+              "equal; bf16 (the voxel pretrain's features, the teacher's) "
+              "and f32 (the DeepLabV3 student's on pretrain frame2recon), "
+              "block and random ids; ms is bf16 on block superpixels, "
+              "ms_f32 f32", **row,
     )
 
 
@@ -2170,6 +2222,277 @@ def ddd17_disk_phase(torch, dev, smi, zero_counts, read_counts):
     return {k: counts[k] + val_counts[k] for k in counts}
 
 
+def recon_batch(s, batch=8, seed=3):
+    """One synthetic ``frame2recon`` batch on the host: random frames and
+    reconstructions, block superpixels, and labels and pseudo-labels
+    constant per block from a skewed class distribution."""
+    rng = np.random.default_rng(seed)
+    H, W = (int(v) for v in s.img_size_b)
+    C = s.semseg_num_classes
+    return {
+        "frame": rng.uniform(0, 1, (batch, H, W, 3)).astype(np.float32),
+        "recon": rng.uniform(0, 1, (batch, H, W, 3)).astype(np.float32),
+        "label": block_labels(rng, batch, H, W, C),
+        "pl": block_labels(rng, batch, H, W, C),
+        "superpixel": block_superpixels(batch, H, W),
+    }
+
+
+def k2_ms_per_step(avg, n):
+    """Device ms per step of K2's kernel in a profile of ``n`` steps."""
+    return sum(e.self_device_time_total for e in avg
+               if "segment_sums" in e.key) / 1e3 / n
+
+
+def recon_phase(torch, dev, smi, title, settings, host_batch, steps,
+                expect, loss_keys, zero_counts, read_counts, loaded=None,
+                ckpt_dir=None):
+    """A ``frame2recon`` workload at full width through ``Trainer``: a
+    warm-up step, an epoch of ``steps`` steps on one batch through
+    ``train_epoch`` (launch counts per step held to ``expect``), timed
+    steps, ``val_epoch`` (eval mode: ``student_fold_bn`` folds the trained
+    trunk; in f32 the folded trunk, whose fold cache was filled before
+    training, is held to the unfolded one), a profile with the spans
+    and K2's time, and, given ``ckpt_dir``, a checkpoint. ``loaded`` maps
+    state-dict entries to the values they must hold before the first step.
+    Returns the epoch's launch counts."""
+    from openess_tpu_torch.metrics import MetricsSemseg
+    from openess_tpu_torch.training import checkpoint as ckpt
+    from openess_tpu_torch.training.build import trainable_labels
+    from openess_tpu_torch.training.trainer import Trainer, to_device
+
+    phase(title)
+    B = host_batch["label"].shape[0]
+    H, W = (int(v) for v in settings.img_size_b)
+    s = dataclasses.replace(settings, batch_size_b=B, save_checkpoint=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = steps
+    data = OneBatchDataset(host_batch, n)
+    trainer = Trainer(s, data, data, seed=0, device=dev)
+    sb, mset = trainer.sb, trainer.mset
+    trainable = {k for k, v in trainable_labels(mset, s).items()
+                 if v != "frozen"}
+    students = [k for k, r in mset.roles.items() if r == "deeplab"]
+    state0 = {f"{m}.{k}": v.clone() for m, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    print(f"task {mset.task}, {s.config_option}, modules "
+          f"{dict(mset.roles)}; {s.dataset_name_b} at {(H, W)}, B={B}, "
+          f"{s.semseg_num_classes} classes, {s.compute_dtype}, "
+          f"output_stride {s.output_stride} (os16 trunk), student_fold_bn "
+          f"{s.student_fold_bn}, teacher_os {s.teacher_os}, superpixel_size "
+          f"{s.superpixel_size}, contrastive {s.if_spatial_contrastive}, "
+          f"dense CLIP {s.if_dense_clip_supervision}, lr_recon {s.lr_recon}, "
+          f"augmentation {'on' if s.data_augmentation_train else 'off'}; "
+          f"random weights, seed 0; {len(trainable)} trainable tensors")
+    if loaded is not None:
+        same = all(torch.equal(state0[k], v.to(state0[k].dtype).to(dev))
+                   for k, v in loaded.items())
+        print(f"  {len(loaded)} tensors loaded from the pretrain checkpoint: "
+              f"{'equal to the file' if same else 'DIFFER from the file'}")
+        if not same or not loaded:
+            raise AssertionError("the pretrain checkpoint was not loaded")
+
+    batch = to_device(host_batch, dev)
+    student = mset.modules["model_recon"]
+
+    def f32_eval_logits(fold):
+        """``model_recon``'s eval logits on the batch in f32, folded or
+        not: the check of the fold cache, free of bf16 rounding."""
+        student.dtype = student.backbone.dtype = torch.float32
+        student.backbone.fold_bn = fold
+        try:
+            with torch.no_grad():
+                return student(batch["recon"])[0]
+        finally:
+            student.dtype = student.backbone.dtype = mset.dtype
+            student.backbone.fold_bn = s.student_fold_bn
+
+    f32_eval_logits(True)  # fills the fold cache from the untrained trunk
+    t0 = time.perf_counter()
+    first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+    torch.cuda.synchronize()
+    print(f"step 0 (warm-up, {time.perf_counter() - t0:.2f} s): {first}")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    avg_losses = trainer.train_epoch()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
+          f"({epoch_s * 1e3 / n:.1f} ms per step, host clock, batch upload "
+          f"included); epoch-average losses {avg_losses}; launches "
+          + " ".join(f"{k} {v}" for k, v in counts.items()))
+
+    hist, events = [], []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        losses = sb.train_step(batch, 0)
+        b.record()
+        hist.append(losses)
+        events.append((a, b))
+    torch.cuda.synchronize()
+    ms = np.array([a.elapsed_time(b) for a, b in events])
+    hist = [first] + [{k: float(v) for k, v in h.items()} for h in hist]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train step p50 {np.percentile(ms, 50):.1f} ms p95 "
+          f"{np.percentile(ms, 95):.1f} ms over {len(ms)} steps (CUDA "
+          f"events, batch resident); peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) at B={B}; on {smi}")
+    for key in sorted(loss_keys - {"total_loss"}):
+        print(f"{key}: step 0 {hist[0][key]:.4f}, timed steps "
+              + " ".join(f"{h[key]:.4f}" for h in hist[1:]))
+    state1 = {f"{m}.{k}": v for m, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    moved = {k for k in state0 if not torch.equal(state0[k], state1[k])}
+    stats = {k for k in state0 if k.split(".")[0] in students
+             and "running_" in k}
+    checks = {
+        "every loss finite": all(np.isfinite(v) for h in hist
+                                 for v in h.values())
+        and all(np.isfinite(v) for v in avg_losses.values()),
+        "loss keys": set(first) == loss_keys,
+        f"the {len(trainable)} trainable tensors moved": trainable <= moved,
+        f"the students' {len(stats)} running statistics moved":
+        stats <= moved,
+        "everything else unchanged": moved <= trainable | stats,
+        "optimizer steps": sb.step == 1 + 2 * n,
+    }
+    for k, per_step in expect.items():
+        checks[f"{k} {per_step} per step"] = counts[k] == per_step * n
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{title}: checks failed: {checks}")
+
+    # eval: the folded trunk after training (its fold cache was filled
+    # before the first step) against the unfolded one, in f32
+    logits_f, logits_u = f32_eval_logits(True), f32_eval_logits(False)
+    err = (logits_f - logits_u).abs().max().item()
+    scale = logits_u.abs().max().item()
+    with torch.no_grad():
+        _, feats = sb._predict(batch)
+    t0 = time.perf_counter()
+    summary = trainer.val_epoch()
+    torch.cuda.synchronize()
+    val_s = time.perf_counter() - t0
+    eval_ok = {
+        "features f32 [B,H,W,256]": feats.dtype == torch.float32
+        and tuple(feats.shape) == (B, H, W, 256),
+        "f32 folded trunk within 1e-3 x max of the unfolded":
+        err <= 1e-3 * scale,
+        "mIoU in [0, 100]": 0.0 <= summary["miou"] <= 100.0,
+        "confusion counts every pixel":
+        summary["cm"].sum() == len(data) * H * W,
+    }
+    print(f"val_epoch ({len(data)} samples, {val_s:.2f} s): mIoU "
+          f"{summary['miou']:.2f} acc {summary['acc']:.2f} against block "
+          f"labels; f32 folded vs unfolded trunk after training: "
+          f"max|diff| logits {err:.3e} of max {scale:.3f}; " + ", ".join(
+              f"{k} {'ok' if v else 'FAIL'}" for k, v in eval_ok.items()))
+    if not all(eval_ok.values()):
+        raise AssertionError(f"{title}: eval checks failed: {eval_ok}")
+    if ckpt_dir is not None:
+        path = ckpt.save_checkpoint(ckpt_dir, mset, trainer.optimizer,
+                                    sb.step, 0)
+        print(f"checkpoint {os.path.getsize(path) / 1e6:.1f} MB written")
+
+    print("trace: device busy time and idle share")
+    k = 3
+    avg, wall, spans = device_profile(
+        torch, lambda: [sb.train_step(batch, 0) for _ in range(k)])
+    print_profile(avg, wall, k, "step", smi)
+    print_spans(avg, spans, k)
+    print(f"K2 segment_pool_sums: {counts['K2'] // n} launches a step, "
+          f"{k2_ms_per_step(avg, k):.3f} device ms a step; on {smi}")
+    del trainer, sb, mset, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def small_residual_scales(mset, seed=7):
+    """Each DeepLabV3 bottleneck's ``bn3`` scale from U(0.02, 0.06): at the
+    identity init the f32 backward of a train-mode ResNet-50 explodes
+    (measured on the CPU against f64), and no bound could tell a wrong
+    gradient from rounding (``tests/test_torch_recon_train.py``)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in mset.modules.items():
+            if mset.roles[name] != "deeplab":
+                continue
+            for mod_name, mod in m.backbone.named_modules():
+                if mod_name.endswith("bn3"):
+                    w = torch.empty(mod.weight.shape).uniform_(
+                        0.02, 0.06, generator=gen)
+                    mod.weight.copy_(w.to(mod.weight.device))
+
+
+def recon_reference_phase(torch, dev):
+    """One f32 pretrain ``frame2recon`` step at 64x96, B = 2 (teacher at
+    output stride 4, SAM distillation on) on CUDA (K2 on the student's f32
+    and the teacher's features) against the same step on the CPU (plain
+    versions), same seed, dropout off."""
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.optim import make_optimizer
+    from openess_tpu_torch.training.steps import StepBuilder
+    from openess_tpu_torch.training.trainer import to_device
+
+    phase("frame2recon reference: f32 pretrain step on CUDA (K2) vs on the "
+          "CPU (plain), 64x96, B=2")
+    s = recon_pretrain_settings(
+        compute_dtype="float32", img_size_b=(64, 96), batch_size_b=2,
+        data_augmentation_train=False, if_sam_distillation=True,
+        superpixel_size=100)
+    host = recon_batch(s, batch=2, seed=5)
+    host["sam_feat"] = np.random.default_rng(6).normal(
+        0, 1, (2, 64, 64, 256)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mset = build_models(s, seed=0, device=d)
+        small_residual_scales(mset)
+        mset.modules["model_recon"].classifier.ASPP.dropout_rate = 0.0
+        sb = StepBuilder(s, mset, make_optimizer(s, mset), 1)
+        sb._set_mode(True)
+        total, losses = sb.compute_losses(to_device(host, d), 0)
+        total.backward()
+        out[d.type] = (
+            {k: float(v.detach()) for k, v in losses.items()},
+            {f"{n}.{k}": p.grad.detach().cpu()
+             for n, m in mset.modules.items()
+             for k, p in m.named_parameters() if p.grad is not None},
+            {f"{n}.{k}": v.cpu() for n, m in mset.modules.items()
+             for k, v in m.state_dict().items() if "running_" in k})
+        del mset, sb, total, losses
+    (lg, gg, sg), (lc, gc, sc) = out["cuda"], out["cpu"]
+    worst_loss = max(abs(lg[k] - lc[k]) / abs(lc[k]) for k in lc)
+    errs = [((gg[k] - gc[k]).norm() / gc[k].norm()).item() for k in gc]
+    stats = max(((sg[k] - v).abs().max() / v.abs().max()).item()
+                for k, v in sc.items())
+    ok = (worst_loss <= TRAIN_LOSS_REL_TOL and stats <= TRAIN_LOSS_REL_TOL
+          and max(errs) <= RECON_GRAD_L2_TOL
+          and float(np.median(errs)) <= RECON_GRAD_MEDIAN_TOL
+          and set(gg) == set(gc) and set(lc) == {
+              "contrastive_nce_loss", "dense_clip_loss",
+              "sam_distillation_loss", "total_loss"})
+    print(f"losses {lc}")
+    print(f"max rel |cuda-cpu|: losses {worst_loss:.3e} (bound "
+          f"{TRAIN_LOSS_REL_TOL:.0e}); running statistics {stats:.3e} of "
+          f"each tensor's max (bound {TRAIN_LOSS_REL_TOL:.0e}); gradients of "
+          f"{len(errs)} tensors, relative L2: median "
+          f"{float(np.median(errs)):.3e} (bound {RECON_GRAD_MEDIAN_TOL:.0e}),"
+          f" worst {max(errs):.3e} (bound {RECON_GRAD_L2_TOL:.0e}: the f32 "
+          f"backward through 60 train-mode BatchNorms of batch 2, as the "
+          f"CPU tests hold the port to JAX) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CUDA frame2recon step disagrees with the "
+                             "CPU one")
+
+
 def main():
     import torch
 
@@ -2499,6 +2822,42 @@ def main():
     del windows
     launches["ddd17_grid"] = ddd17_disk_phase(torch, dev, smi, zero_counts,
                                               read_counts)
+
+    # the frame/recon workloads: the DeepLabV3 student (K2 on its f32
+    # features and the teacher's in the pretrain step)
+    recon_host = recon_batch(recon_pretrain_settings())
+    none = dict.fromkeys(("K1", "K2", "K3", "K3_bwd", "K4", "K5", "K6"), 0)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        launches["recon_pretrain"] = recon_phase(
+            torch, dev, smi,
+            "T8-pretrain-recon: pretrain frame2recon at full width, bf16 "
+            "(Trainer)", recon_pretrain_settings(), recon_host, TRAIN_STEPS,
+            none | {"K2": 2},
+            {"contrastive_nce_loss", "dense_clip_loss", "total_loss"},
+            zero_counts, read_counts, ckpt_dir=ckpt_dir)
+        from openess_tpu_torch.training.checkpoint import read_model_state
+
+        loaded = {f"model_recon.{k}": v for k, v in
+                  read_model_state(ckpt_dir)["model_recon"].items()}
+        launches["recon_finetune"] = recon_phase(
+            torch, dev, smi,
+            "F8-finetune-recon: fine-tune frame2recon at full width, bf16 "
+            "(Trainer, from the T8-pretrain-recon checkpoint)",
+            finetune_settings(config_option="frame2recon",
+                              pretrained_file=ckpt_dir),
+            recon_host, RECON_DOWNSTREAM_STEPS, none,
+            {"semseg_loss", "total_loss"}, zero_counts, read_counts,
+            loaded=loaded)
+        del loaded
+    launches["recon_uda"] = recon_phase(
+        torch, dev, smi,
+        "U8-uda-recon: UDA on frame2recon (two DeepLabV3 students) at full "
+        "width, bf16 (Trainer)", uda_recon_settings(), recon_host,
+        RECON_DOWNSTREAM_STEPS, none,
+        {"semseg_frame_loss", "semseg_recon_loss", "cons_feat_loss",
+         "cons_pred_loss", "total_loss"}, zero_counts, read_counts)
+    del recon_host
+    recon_reference_phase(torch, dev)
 
     phase("summary")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

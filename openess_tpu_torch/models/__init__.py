@@ -1,4 +1,6 @@
-"""PyTorch models: E2VID, the SemSegE2VID head and the frame teacher."""
+"""PyTorch models: E2VID, the SemSegE2VID head, the frame teacher and the
+DeepLabV3 student."""
+from openess_tpu_torch.models.deeplabv3 import DeepLabV3TextSeg
 from openess_tpu_torch.models.e2vid import (
     E2VIDReconstructor,
     E2VIDStreamingStep,
@@ -9,6 +11,7 @@ from openess_tpu_torch.models.resnet import ResNet50
 from openess_tpu_torch.models.semseg_e2vid import SemSegE2VID
 
 __all__ = [
+    "DeepLabV3TextSeg",
     "DilationFeatureExtractor",
     "E2VIDReconstructor",
     "E2VIDStreamingStep",

@@ -1,7 +1,8 @@
 """JAX (flax) parameter trees -> ``state_dict``s of the port's modules.
 
 The inverse of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``,
-``convert_semseg_e2vid`` and ``convert_dilation_teacher``: the trees are
+``convert_semseg_e2vid``, ``convert_dilation_teacher`` and
+``convert_deeplab``: the trees are
 nested dicts of numpy arrays, the state-dict keys are the reference's.
 Layout rules:
 
@@ -102,12 +103,14 @@ def _bn(sd: dict, name: str, p: dict, stats: dict):
 def resnet50_state_dict_from_jax(params: dict, batch_stats: dict,
                                  prefix: str = "") -> dict:
     """flax ``ResNet50`` params and batch stats -> torchvision-named
-    ``state_dict`` (the keys ``convert_resnet50`` reads)."""
+    ``state_dict`` (the keys ``convert_resnet50`` reads); the blocks are
+    the tree's, so a trunk of other ``layers`` converts too."""
     sd: dict = {}
     _conv(sd, prefix + "conv1", params["conv1"])
     _bn(sd, prefix + "bn1", params["bn1"], batch_stats["bn1"])
-    for li, blocks in zip(range(1, 5), (3, 4, 6, 3)):
-        for bi in range(blocks):
+    for li in range(1, 5):
+        bi = 0
+        while f"layer{li}/{bi}" in params:
             bp = params[f"layer{li}/{bi}"]
             bs = batch_stats[f"layer{li}/{bi}"]
             base = f"{prefix}layer{li}.{bi}."
@@ -118,6 +121,7 @@ def resnet50_state_dict_from_jax(params: dict, batch_stats: dict,
                 _conv(sd, base + "downsample.0", bp["downsample_conv"])
                 _bn(sd, base + "downsample.1", bp["downsample_bn"],
                     bs["downsample_bn"])
+            bi += 1
     return sd
 
 
@@ -131,4 +135,32 @@ def teacher_state_dict_from_jax(params: dict, batch_stats: dict) -> dict:
         params["encoder"], batch_stats["encoder"], prefix="encoder."
     )
     _conv(sd, "decoder_conv", params["decoder_conv"])
+    return sd
+
+
+def deeplab_state_dict_from_jax(params: dict, batch_stats: dict,
+                                text) -> dict:
+    """flax ``DeepLabV3TextSeg`` params, batch stats and text embeddings
+    ``[C, 512]`` -> ``state_dict`` of the port's :class:`DeepLabV3TextSeg`
+    (with ``linear_probe.*`` when the tree has it). The inverse of
+    ``convert_deeplab``."""
+    sd = resnet50_state_dict_from_jax(
+        params["backbone"], batch_stats["backbone"], prefix="backbone."
+    )
+    head, stats = params["classifier"], batch_stats["classifier"]
+    aspp, aspp_s = head["aspp"], stats["aspp"]
+    base = "classifier.ASPP."
+    for i in range(4):
+        _conv(sd, f"{base}convs.{i}.0", aspp[f"conv{i}"])
+        _bn(sd, f"{base}convs.{i}.1", aspp[f"bn{i}"], aspp_s[f"bn{i}"])
+    _conv(sd, base + "convs.4.1", aspp["conv4"])
+    _bn(sd, base + "convs.4.2", aspp["bn4"], aspp_s["bn4"])
+    _conv(sd, base + "project.0", aspp["project"])
+    _bn(sd, base + "project.1", aspp["project_bn"], aspp_s["project_bn"])
+    _conv(sd, "classifier.classifier.0", head["classifier_conv"])
+    _bn(sd, "classifier.classifier.1", head["classifier_bn"],
+        stats["classifier_bn"])
+    sd["classifier.text_embeddings"] = _t(text)
+    if "linear_probe" in params:
+        _conv(sd, "linear_probe", params["linear_probe"])
     return sd

@@ -62,7 +62,7 @@ class DilationFeatureExtractor(nn.Module):
         with torch.no_grad():
             if self.preprocess:
                 x = imagenet_normalize(x)
-            feat = self.encoder(x.permute(0, 3, 1, 2))
+            feat = self.encoder(x.permute(0, 3, 1, 2), train=False)
         dc = self.decoder_conv
         feat = nn.functional.conv2d(
             feat.to(self.dtype), dc.weight.to(self.dtype),

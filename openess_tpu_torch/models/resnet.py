@@ -7,17 +7,22 @@ eps 1e-5, and torchvision's state-dict key names (``conv1.weight``,
 ``bn1.running_mean``, ``layer1.0.downsample.0.weight`` ...), which are the
 keys ``openess_tpu/models/torch_convert.py:convert_resnet50`` reads.
 
-The trunk is an inference-only feature extractor here (the frozen frame
-teacher): its BatchNorms always use the running statistics, whatever the
-module's train flag. Parameters stay in f32; ``dtype`` is the compute dtype.
-Without ``fold_bn`` each conv runs in ``dtype`` and its BN in f32, as the
-flax module does. With ``fold_bn`` every inference BN is folded into its
-conv (``s = gamma / sqrt(var + eps)`` scales the kernel, ``beta - mean * s``
-is the bias; folded in f32, then cast to ``dtype``), which is exact for
-frozen statistics and removes the f32 round trip between every conv pair.
-The folded weights are a cache beside the parameters: ``state_dict`` keeps
-the unfolded keys, and the cache is dropped whenever the parameters are
-loaded, moved or cast.
+``forward(x, train=False)`` takes the BatchNorm mode as an argument, as the
+flax module does, and never reads the module's ``training`` flag: the frozen
+frame teacher always runs with ``train=False`` while its trainable
+``decoder_conv`` is in train mode, and the DeepLabV3 student runs with
+``train=True`` in a train step whether or not anything of it trains.
+``train=True`` normalizes with the batch statistics and updates the running
+ones (:func:`batch_norm`, flax's arithmetic). Parameters stay in f32;
+``dtype`` is the compute dtype. Each conv runs in ``dtype`` and its BN in
+f32, as the flax module does. With ``fold_bn`` and ``train=False`` every BN
+is folded into its conv (``s = gamma / sqrt(var + eps)`` scales the kernel,
+``beta - mean * s`` is the bias; folded in f32, then cast to ``dtype``),
+which is exact for inference and removes the f32 round trip between every
+conv pair. The folded weights are a cache beside the parameters, keyed on
+the compute dtype and the version counters of the conv weight and the four
+BN tensors, so an optimizer step, a running-statistics update, a load, a
+move or a cast refolds; ``state_dict`` keeps the unfolded keys.
 """
 from __future__ import annotations
 
@@ -28,6 +33,36 @@ import torch.nn.functional as F
 from torch import nn
 
 _BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # PyTorch's sense: flax's momentum 0.9 keeps 0.9 of the old
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, *,
+               train: bool) -> torch.Tensor:
+    """flax ``BatchNorm`` of an NCHW tensor on ``bn``'s parameters and
+    buffers, in f32 (f64 for an f64 ``x``); returns f32 (f64).
+
+    ``train=False`` normalizes with the running statistics. ``train=True``
+    normalizes with the batch statistics, the variance biased and computed
+    as ``E[x^2] - E[x]^2`` clipped at zero (flax's arithmetic; one value a
+    channel gives zero variance and the output is the bias, where
+    ``F.batch_norm`` raises), and updates the running statistics in place
+    with the same biased variance: ``r = 0.9 r + 0.1 batch``.
+    """
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
+    if not train:
+        return F.batch_norm(
+            xf, bn.running_mean.to(acc), bn.running_var.to(acc),
+            bn.weight.to(acc), bn.bias.to(acc), False, 0.0, _BN_EPS)
+    dims = (0, 2, 3)
+    mean = xf.mean(dim=dims)
+    var = (xf.square().mean(dim=dims) - mean.square()).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean.to(bn.running_mean.dtype), BN_MOMENTUM)
+        bn.running_var.lerp_(var.to(bn.running_var.dtype), BN_MOMENTUM)
+    mul = torch.rsqrt(var + _BN_EPS) * bn.weight.to(acc)
+    return (xf - mean[:, None, None]) * mul[:, None, None] \
+        + bn.bias.to(acc)[:, None, None]
 
 
 class _FoldCache(nn.Module):
@@ -36,34 +71,33 @@ class _FoldCache(nn.Module):
     def __init__(self):
         super().__init__()
         self._folded: dict = {}
-        self.register_load_state_dict_post_hook(
-            lambda module, _keys: module._folded.clear()
-        )
 
     def _apply(self, fn, *args, **kwargs):
         self._folded.clear()
         return super()._apply(fn, *args, **kwargs)
 
     def conv_bn(self, x, conv: nn.Conv2d, bn: nn.BatchNorm2d, *, fold: bool,
-                dtype: torch.dtype):
-        """conv -> inference BatchNorm of an NCHW tensor."""
-        if not fold:
+                train: bool, dtype: torch.dtype):
+        """conv -> BatchNorm of an NCHW tensor (folded when ``fold`` and
+        not ``train``)."""
+        if train or not fold:
             y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None,
                          conv.stride, conv.padding, conv.dilation)
-            return F.batch_norm(
-                y.float(), bn.running_mean.float(), bn.running_var.float(),
-                bn.weight.float(), bn.bias.float(), False, 0.0, _BN_EPS,
-            )
-        key = id(conv)
-        if key not in self._folded:
+            return batch_norm(y, bn, train=train)
+        tensors = (conv.weight, bn.weight, bn.bias, bn.running_mean,
+                   bn.running_var)
+        version = (dtype,) + tuple(t._version for t in tensors)
+        cached = self._folded.get(id(conv))
+        if cached is None or cached[0] != version:
             with torch.no_grad():
                 s = bn.weight.float() * torch.rsqrt(
                     bn.running_var.float() + _BN_EPS)
                 w = (conv.weight.float() * s[:, None, None, None]).to(dtype)
                 b = (bn.bias.float() - bn.running_mean.float() * s).to(dtype)
-            self._folded[key] = (w.contiguous(
+            cached = (version, w.contiguous(
                 memory_format=torch.channels_last), b)
-        w, b = self._folded[key]
+            self._folded[id(conv)] = cached
+        _, w, b = cached
         return F.conv2d(x.to(dtype), w, b, conv.stride, conv.padding,
                         conv.dilation)
 
@@ -101,8 +135,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(_FoldCache):
-    """``forward(x)`` takes an NCHW image batch and returns the layer4
-    feature map (NCHW, 2048 channels).
+    """``forward(x, train=False)`` takes an NCHW image batch and returns the
+    layer4 feature map (NCHW, 2048 channels): f32 unless folded, where it
+    is in ``dtype``.
 
     ``replace_stride_with_dilation``: (False, False, True) is output stride
     16, (False, True, True) 8, (True, True, True) 4 (the frame teacher).
@@ -139,9 +174,9 @@ class ResNet50(_FoldCache):
                     inplanes = planes * 4
             setattr(self, f"layer{li + 1}", nn.ModuleList(stage))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         cb = lambda x, conv, bn: self.conv_bn(
-            x, conv, bn, fold=self.fold_bn, dtype=self.dtype)
+            x, conv, bn, fold=self.fold_bn, train=train, dtype=self.dtype)
         x = x.contiguous(memory_format=torch.channels_last)
         x = F.relu(cb(x, self.conv1, self.bn1))
         x = F.max_pool2d(x, 3, 2, 1)

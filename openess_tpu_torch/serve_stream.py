@@ -22,7 +22,10 @@ Usage:
 
 Weights are random from a fixed seed unless ``--checkpoint`` names a
 checkpoint of the port's trainer (``training/checkpoint.py``), whose
-``front_sensor_b`` and ``back_end`` are then loaded.
+``front_sensor_b`` and ``back_end`` are then loaded. The server runs the
+event path only: settings on ``frame2recon``, and a checkpoint of a
+``frame2recon`` run (which holds DeepLabV3 students and no event path),
+are refused.
 """
 from __future__ import annotations
 
@@ -98,8 +101,17 @@ class StreamServer:
         self.streams = streams
         mset = build_models(s, seed=seed, device=device, event_path_only=True)
         if checkpoint:
-            from openess_tpu_torch.training.checkpoint import load_model_only
+            from openess_tpu_torch.training.checkpoint import (
+                load_model_only,
+                read_model_state,
+            )
 
+            held = read_model_state(checkpoint)
+            if not {"front_sensor_b", "back_end"} <= set(held):
+                raise ValueError(
+                    f"checkpoint {checkpoint!r} holds {sorted(held)} and no "
+                    "event path (front_sensor_b, back_end): a frame2recon "
+                    "checkpoint cannot be served")
             load_model_only(checkpoint, mset)
         self.models = serving_models(mset)
         self.device = self.models.device

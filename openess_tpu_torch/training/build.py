@@ -12,9 +12,15 @@ front_sensor_b    ``e2vid``: the E2VID reconstructor over the T windows,
 back_end          ``semseg_head``: SemSegE2VID over the E2VID latents,
                   scoring against the CLIP text embeddings; with the
                   ``linear_probe`` conv under ``if_linear_probing``
-model_frame /     ``teacher``: the frame teacher (frozen dilated ResNet-50
-model_recon       encoder, trainable ``decoder_conv``), applied to frames
-                  (frame2voxel) or reconstructions (recon2voxel)
+model_recon       ``deeplab``: the DeepLabV3 student on reconstructions
+                  (pretrain ``frame2recon``, the supervised tasks on
+                  ``frame2recon``, UDA on ``frame2recon`` and
+                  ``recon2voxel``), or ``teacher`` in a ``recon2voxel``
+                  pretrain
+model_frame       ``teacher``: the frame teacher (frozen dilated ResNet-50
+                  encoder, trainable ``decoder_conv``) of a pretrain on
+                  ``frame2voxel`` or ``frame2recon``; or ``deeplab`` on
+                  frames in UDA on ``frame2voxel`` and ``frame2recon``
 ================  ==========================================================
 
 This is the one place where a module is made and initialised: the trainer
@@ -23,11 +29,11 @@ with the flax initializers' distributions (truncated-normal LeCun for
 convs, variance-scaled uniform for the transposed convs, zero biases,
 identity BatchNorms); released checkpoints are not loaded yet.
 
-Parameter dtypes: a frozen E2VID is stored in the compute dtype; whatever
-trains (the head, the teacher, E2VID under ``unfrozen_e2vid``) keeps f32
-parameters and casts them to the compute dtype where they are used (as flax
-modules do), so the optimizer updates f32 weights under a bf16 compute
-dtype.
+Parameter dtypes: a frozen E2VID is stored in the compute dtype; the rest
+(the head, the teacher, the DeepLabV3 students, E2VID under
+``unfrozen_e2vid``) keeps f32 parameters and casts them to the compute
+dtype where they are used (as flax modules do), so the optimizer updates
+f32 weights under a bf16 compute dtype.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from torch import nn
 
 from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import Settings
+from openess_tpu_torch.models.deeplabv3 import DeepLabV3TextSeg
 from openess_tpu_torch.models.e2vid import (
     E2VIDReconstructor,
     E2VIDStreamingStep,
@@ -114,8 +121,9 @@ def task_from_settings(s: Settings) -> str:
 class ModelSet:
     modules: dict                  # name -> nn.Module
     roles: dict                    # name -> 'e2vid'|'semseg_head'|'teacher'
+                                   #         |'deeplab'
     groups: dict                   # name -> group 'recon'|'frame'|'voxel'
-    text_embeddings: torch.Tensor  # [num_classes, 512]: the head's buffer
+    text_embeddings: torch.Tensor  # [num_classes, 512]: a student's buffer
     task: str
     dtype: torch.dtype             # the compute dtype
     device: torch.device
@@ -123,12 +131,6 @@ class ModelSet:
     def state_dict(self) -> dict:
         """``{name: module.state_dict()}`` (the checkpoint's model part)."""
         return {k: m.state_dict() for k, m in self.modules.items()}
-
-
-_NOT_PORTED = {
-    "openess": "ROADMAP Queue 1 item 6 (DeepLabV3 and the frame/recon "
-               "workloads)",
-}
 
 
 def refuse_unported_mesh(s: Settings, device=None) -> None:
@@ -160,28 +162,24 @@ def e2vid_trains(s: Settings) -> bool:
 def build_models(s: Settings, seed: int = 0, device=None, *,
                  event_path_only: bool = False) -> ModelSet:
     """The modules of the configured workload on ``device`` (CUDA unless
-    asked otherwise), seeded. Ported: pretrain, ``sup_only``, ``finetune``
-    and ``linear_probe`` on the voxel options (``frame2voxel`` /
-    ``recon2voxel``); anything else, and ``tpu.e2vid_s2d``,
-    raises ``NotImplementedError`` naming the ROADMAP item that brings it.
-    ``event_path_only`` leaves out the teacher (a server needs only
-    ``front_sensor_b`` and ``back_end``, which come out the same)."""
+    asked otherwise), seeded: every task on every ``config_option``, as the
+    JAX package builds them. ``tpu.e2vid_s2d`` raises
+    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    ``event_path_only`` builds ``front_sensor_b`` and ``back_end`` alone
+    (a server needs nothing else; they come out as in the full build), and
+    raises on ``frame2recon``, which has no event path."""
     task = task_from_settings(s)
     opt = s.config_option
-    if task in _NOT_PORTED and not event_path_only:
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet: {_NOT_PORTED[task]}"
-        )
     if s.e2vid_s2d:
         raise NotImplementedError(
             "tpu.e2vid_s2d: E2VID's space-to-depth form is not ported yet: "
             "ROADMAP Queue 1 item 10 (the tpu.e2vid_s2d knob)")
-    if opt not in VOXEL_OPTIONS:
-        raise NotImplementedError(
-            f"config_option {opt!r} needs the DeepLabV3 student, which is "
-            "not ported yet: ROADMAP Queue 1 item 6 (DeepLabV3 and the "
-            f"frame/recon workloads); ported options: {VOXEL_OPTIONS}"
-        )
+    if opt not in VOXEL_OPTIONS + ("frame2recon",):
+        raise ValueError(f"unknown config_option {opt!r}")
+    if event_path_only and opt not in VOXEL_OPTIONS:
+        raise ValueError(
+            f"config_option {opt!r} has no event path (E2VID and the "
+            "SemSegE2VID head): serving needs frame2voxel or recon2voxel")
     dev = resolve_device(device)
     dt = compute_dtype(s)
     text = torch.from_numpy(
@@ -192,35 +190,75 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
     def add(name, module, role, group):
         modules[name], roles[name], groups[name] = module, role, group
 
-    add("front_sensor_b", E2VIDReconstructor(
-        num_bins=s.input_channels_b, normalize=True, planar_input=True,
-        latent_only=True, fused_gates=s.e2vid_fused_gates,
-    ), "e2vid", "voxel")
-    add("back_end", SemSegE2VID(
-        input_c=256, num_classes=s.semseg_num_classes,
-        linear_probe=s.if_linear_probing and task != "pretrain",
-    ), "semseg_head", "voxel")
-    if task == "pretrain" and not event_path_only:
-        name, group = (("model_recon", "recon") if opt == "recon2voxel"
-                       else ("model_frame", "frame"))
+    def event_path(linear_probe=False):
+        add("front_sensor_b", E2VIDReconstructor(
+            num_bins=s.input_channels_b, normalize=True, planar_input=True,
+            latent_only=True, fused_gates=s.e2vid_fused_gates,
+        ), "e2vid", "voxel")
+        add("back_end", SemSegE2VID(
+            input_c=256, num_classes=s.semseg_num_classes,
+            linear_probe=linear_probe,
+        ), "semseg_head", "voxel")
+
+    def deeplab(name, group, linear_probe=False):
+        add(name, DeepLabV3TextSeg(
+            s.semseg_num_classes, output_stride=s.output_stride,
+            linear_probe=linear_probe, fold_bn=s.student_fold_bn, dtype=dt,
+        ), "deeplab", group)
+
+    def teacher(name, group):
         add(name, DilationFeatureExtractor(
             dtype=dt, output_stride=s.teacher_os, fold_bn=s.teacher_fold_bn,
         ), "teacher", group)
 
+    lp = s.if_linear_probing
+    if event_path_only:
+        event_path(lp and task in ("finetune", "linear_probe", "sup_only"))
+    elif task == "pretrain":
+        if opt == "frame2recon":
+            deeplab("model_recon", "recon")
+            teacher("model_frame", "frame")
+        else:
+            event_path()
+            if opt == "recon2voxel":
+                teacher("model_recon", "recon")
+            else:
+                teacher("model_frame", "frame")
+    elif task in ("finetune", "linear_probe", "sup_only"):
+        if opt in VOXEL_OPTIONS:
+            event_path(lp)
+        else:
+            deeplab("model_recon", "recon", lp)
+    else:  # openess (UDA)
+        if opt == "frame2recon":
+            deeplab("model_recon", "recon")
+            deeplab("model_frame", "frame")
+        else:
+            event_path()
+            if opt == "recon2voxel":
+                deeplab("model_recon", "recon")
+            else:
+                deeplab("model_frame", "frame")
+
     gen = torch.Generator().manual_seed(seed)
     for m in modules.values():
         init_weights(m, gen)
-    modules["back_end"].text_embeddings.copy_(text)
+    for name, m in modules.items():
+        if roles[name] == "semseg_head":
+            m.text_embeddings.copy_(text)
+        elif roles[name] == "deeplab":
+            m.classifier.text_embeddings.copy_(text)
     for name, m in modules.items():
         if roles[name] == "e2vid" and not e2vid_trains(s):
             # frozen: stored in the compute dtype
             m.to(device=dev, dtype=dt, memory_format=torch.channels_last)
         else:
             m.to(device=dev, memory_format=torch.channels_last)
+    student = (modules["back_end"].text_embeddings if "back_end" in modules
+               else modules["model_recon"].classifier.text_embeddings)
     mset = ModelSet(
         modules=modules, roles=roles, groups=groups,
-        text_embeddings=modules["back_end"].text_embeddings, task=task,
-        dtype=dt, device=dev,
+        text_embeddings=student, task=task, dtype=dt, device=dev,
     )
     labels = trainable_labels(mset, s)
     for name, m in modules.items():
@@ -232,11 +270,12 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
 def trainable_labels(mset: ModelSet, s: Settings) -> dict:
     """``{"<module>.<parameter>": label}`` with the optimizer-group label
     ('recon' / 'frame' / 'voxel') of every parameter, or 'frozen': E2VID
-    unless it trains (:func:`e2vid_trains`), the teacher's ``encoder``, and
-    under ``if_linear_probing`` everything of the head but ``linear_probe``;
-    the teacher's ``decoder_conv`` and the head train in their module's
-    group. ``frozen_backbone`` freezes the DeepLabV3 student's backbone
-    only, so it changes nothing on the event path."""
+    unless it trains (:func:`e2vid_trains`), the teacher's ``encoder``,
+    under ``if_linear_probing`` everything of the head and of the DeepLabV3
+    students but ``linear_probe``, and under ``if_finetuning`` with
+    ``frozen_backbone`` a student's ``backbone``; the rest trains in its
+    module's group. ``frozen_backbone`` changes nothing on the event
+    path."""
     labels = {}
     for name, m in mset.modules.items():
         role, group = mset.roles[name], mset.groups[name]
@@ -245,8 +284,12 @@ def trainable_labels(mset: ModelSet, s: Settings) -> dict:
                 label = group if e2vid_trains(s) else "frozen"
             elif role == "teacher" and pname.startswith("encoder"):
                 label = "frozen"
-            elif (role == "semseg_head" and s.if_linear_probing
+            elif (role in ("semseg_head", "deeplab") and s.if_linear_probing
                   and "linear_probe" not in pname):
+                label = "frozen"
+            elif (role == "deeplab" and not s.if_linear_probing
+                  and s.if_finetuning and s.frozen_backbone
+                  and pname.startswith("backbone")):
                 label = "frozen"
             else:
                 label = group

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import K4_EDGE_CASES, k4_edge_wire
+from chip_smoke import K4_EDGE_CASES, k4_edge_wire, small_residual_scales
 from openess_tpu_torch.ops import lstm_gates as k3
 from openess_tpu_torch.ops import segment_pool as k2
 from openess_tpu_torch.ops import voxelize_chunked as k1
@@ -637,3 +637,115 @@ def test_finetune_step_with_unfrozen_e2vid_on_the_card_matches_cpu(cuda):
             assert (gg[k] - gc[k]).abs().max() <= 1e-1 * scale, k
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("fold", [False, True], ids=["plain", "fold"])
+def test_deeplab_forward_on_the_card_matches_cpu(cuda, fold, train):
+    """The DeepLabV3 student in f32 at 64x96, B = 2, on CUDA (cuDNN convs,
+    TF32 off) against the CPU: both outputs within 1e-3 of their max, and
+    the running statistics a train-mode forward leaves within 1e-3 of each
+    tensor's max. Dropout off on both."""
+    from openess_tpu_torch.models.deeplabv3 import DeepLabV3TextSeg
+    from openess_tpu_torch.training.build import init_weights
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m = DeepLabV3TextSeg(6, fold_bn=fold)
+        init_weights(m, torch.Generator().manual_seed(0))
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            m.classifier.text_embeddings.normal_(0, 0.1, generator=gen)
+            for mod_name, mod in m.backbone.named_modules():
+                if mod_name.endswith("bn3"):
+                    mod.weight.uniform_(0.02, 0.06, generator=gen)
+        m.classifier.ASPP.dropout_rate = 0.0
+        sd = {k: v.clone() for k, v in m.state_dict().items()}
+        x = torch.rand((2, 64, 96, 3), generator=gen)
+        out = {}
+        for dev in (torch.device("cpu"), cuda):
+            mm = DeepLabV3TextSeg(6, fold_bn=fold).to(dev)
+            mm.load_state_dict(sd)
+            mm.classifier.ASPP.dropout_rate = 0.0
+            with torch.no_grad():
+                logits, feats = mm(x.to(dev), train=train)
+            out[dev.type] = (logits.cpu(), feats.cpu(), {
+                k: v.cpu() for k, v in mm.state_dict().items()
+                if "running" in k})
+        for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+            assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+        for k, v in out["cpu"][2].items():
+            assert (out["cuda"][2][k] - v).abs().max() <= 1e-3 * v.abs().max()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def test_recon_pretrain_step_on_the_card_matches_cpu(cuda):
+    """One f32 pretrain ``frame2recon`` step (DeepLabV3 student against the
+    frame teacher, NCE through K2 on both features, dense CLIP, SAM
+    distillation) at 64x96, B = 2 on CUDA against the CPU: every loss
+    within 1e-3 relative; each gradient tensor within 6e-2 relative L2 and
+    their median within 1e-2, the bounds ``test_torch_recon_train.py``
+    holds the port to against JAX (the f32 backward through 60 train-mode
+    BatchNorms of batch 2); K2 launched twice, on the student's f32
+    features and the teacher's."""
+    from openess_tpu_torch.config.settings import Settings
+    from openess_tpu_torch.data.synthetic import SyntheticESS
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.optim import make_optimizer
+    from openess_tpu_torch.training.steps import StepBuilder
+    from openess_tpu_torch.training.trainer import to_device
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        s = Settings(
+            dataset_name_b="synthetic_events", img_size_b=(64, 96),
+            semseg_num_classes=6, nr_events_data_b=2, compute_dtype="float32",
+            data_augmentation_train=False, config_option="frame2recon",
+            if_pretraining=True, if_spatial_contrastive=True,
+            if_dense_clip_supervision=True, if_sam_distillation=True,
+            superpixel_size=20)
+        ds = SyntheticESS(num_samples=2, height=64, width=96, num_classes=6,
+                          num_windows=2)
+        host = {k: v for k, v in ds.voxelized_batch([0, 1]).items()
+                if k != "event"}
+        out = {}
+        for dev in (torch.device("cpu"), cuda):
+            mset = build_models(s, seed=0, device=dev)
+            small_residual_scales(mset)
+            mset.modules["model_recon"].classifier.ASPP.dropout_rate = 0.0
+            sb = StepBuilder(s, mset, make_optimizer(s, mset), 1)
+            sb._set_mode(True)
+            before = k2.segment_pool_sums.launches
+            total, losses = sb.compute_losses(to_device(host, dev), 0)
+            total.backward()
+            launches = k2.segment_pool_sums.launches - before
+            out[dev.type] = ({k: float(v.detach()) for k, v in
+                              losses.items()},
+                             {f"{n}.{k}": p.grad.cpu()
+                              for n, m in mset.modules.items()
+                              for k, p in m.named_parameters()
+                              if p.grad is not None}, launches)
+        (lc, gc, nc), (lg, gg, ng) = out["cpu"], out["cuda"]
+        assert nc == 0 and ng == 2
+        assert set(lc) == {"contrastive_nce_loss", "dense_clip_loss",
+                           "sam_distillation_loss", "total_loss"}
+        for k in lc:
+            assert abs(lg[k] - lc[k]) <= 1e-3 * abs(lc[k]), k
+        assert gg.keys() == gc.keys()
+        errs = []
+        for k in gc:
+            assert gc[k].norm() > 0, k
+            errs.append(float((gg[k] - gc[k]).norm() / gc[k].norm()))
+            assert errs[-1] <= 6e-2, k
+        assert float(np.median(errs)) <= 1e-2
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32

@@ -122,11 +122,15 @@ def test_chip_smoke_settings_are_the_flagship_yaml():
     ("ddd17_probe_settings",
      "configs/linear_probe/DDD17/frame2voxel_fcclip_slic.yaml",
      dict(if_pretraining=False)),
+    ("recon_pretrain_settings",
+     "configs/pretrain/DSEC/frame2recon_fcclip_slic.yaml", {}),
+    ("uda_recon_settings",
+     "configs/linear_probe/DSEC/frame2recon_fcclip_sam.yaml", {}),
 ])
 def test_chip_smoke_downstream_settings_are_their_yamls(make, cfg, changed):
-    """The fine-tune YAML run on the event path and the DDD17 linear-probe
-    YAML with ``if_pretraining`` off, as chip_smoke.py builds them in
-    code."""
+    """The fine-tune YAML run on the event path, the DDD17 linear-probe
+    YAML with ``if_pretraining`` off, and the ``frame2recon`` pretrain and
+    UDA YAMLs as shipped, as chip_smoke.py builds them in code."""
     sys.path.insert(0, ROOT)
     import chip_smoke
     from openess_tpu_torch.config.settings import load_settings

@@ -225,3 +225,25 @@ def test_event_windows_and_viz_match_jax(tmp_path):
     labels[0, :5] = 255
     np.testing.assert_array_equal(tcolor(labels, COLOR_MAPS[11]),
                                   jcolor(labels, COLOR_MAPS[11]))
+
+
+def test_server_refuses_frame2recon(tmp_path):
+    """The server runs the event path only: ``frame2recon`` settings, and a
+    checkpoint of a ``frame2recon`` run (DeepLabV3 students, no E2VID and
+    no head), are refused with a plain message."""
+    from openess_tpu_torch.config.settings import load_settings
+    from openess_tpu_torch.serve_stream import StreamServer
+    from openess_tpu_torch.training import checkpoint as ckpt
+    from openess_tpu_torch.training.build import build_models
+
+    recon = load_settings(
+        os.path.join(ROOT, "configs/synthetic_sup_only.yaml"),
+        generate_log=False)
+    assert recon.config_option == "frame2recon"
+    with pytest.raises(ValueError, match="no event path"):
+        StreamServer(recon, device="cpu")
+    mset = build_models(recon, device="cpu")
+    ckpt.save_checkpoint(str(tmp_path), mset, None, 0, 0)
+    voxel = load_settings(_frame2voxel_yaml(tmp_path), generate_log=False)
+    with pytest.raises(ValueError, match="a frame2recon checkpoint cannot"):
+        StreamServer(voxel, device="cpu", checkpoint=str(tmp_path))
