@@ -29,9 +29,11 @@ The downstream stages follow, each through ``Trainer`` as well:
   events, 6 classes, only the head's ``linear_probe`` conv trains), and the
   streaming server on the same settings.
 
-Then the grid wire (``tpu.wire_format: grid``, ``tpu.host_voxelize:
-false``), where the loaders voxelize on the card, K5 for DSEC and K6 for
-DDD17, once per batch:
+Then the grid wire (``tpu.wire_format: grid``), where the loaders make
+``event`` once per batch: on the card (``tpu.host_voxelize: false``; K5
+for DSEC, K6 for DDD17) or on the host (the C++ voxelizers of
+``openess_tpu_torch/native.py``, and DSEC's histogram); each through
+``Trainer``'s ``PrefetchLoader`` at ``num_cpu_workers`` 1 and 4:
 
 - the flagship pretrain trainer on one DSEC batch's padded windows, made
   here (the card machine has no h5py to read a DSEC tree) and turned into
@@ -39,6 +41,15 @@ DDD17, once per batch:
 - the DDD17 linear probe read from a DDD17 tree that this script writes
   with numpy and PIL: ``build_datasets`` -> ``train_epoch`` ->
   ``val_epoch``.
+
+The host's part: the C++ packer (``native.chunk_events_windows_host``)
+packs every wire here, served windows included, and is timed on one thread
+and on every core against the numpy chunker, its plain version, on the
+flagship and DDD17 batches; the grid runs report the loader's time, its
+share of a step and the share hidden behind the step, hold the host grids
+against K5's and K6's, and, with 4 workers, the delivered batches against
+in-line assembly. These numbers, with the host's core count, are printed
+as one ``{"host": [...]}`` line before the kernels' line.
 
 Then the frame/recon workloads, the DeepLabV3-ResNet50 student (output
 stride 16, train-mode BatchNorm, ``student_fold_bn`` in eval) at the same
@@ -69,7 +80,8 @@ PyTorch's fused LSTM cell (B = 1 and 8 at 440x640, B = 8 and 1 at 200x352),
 K3 backward vs plain and the cell's backward (B = 8, bf16 and f32, and with
 a missing gradient), K2 vs plain, serving (S=1 with the plain gate path,
 S=1 with K3, S=8 with K3), a serving trace, an f32 reference check of the
-CUDA server against the CPU server, packing one flagship batch, K1 vs plain
+CUDA server against the CPU server, the host packer (C++ against numpy,
+flagship and DDD17 batches), packing one flagship batch, K1 vs plain
 at NW = 160, training, a training trace, an f32 reference check of the CUDA
 train step against the CPU one, the fine-tune with its trace, an f32
 reference check of a small fine-tune step on CUDA against the CPU, packing
@@ -81,18 +93,21 @@ window, a ragged frame, each into a NaN-filled grid), the DDD17 linear
 probe, DDD17 serving, K5 vs plain (NW = 160, its binning passes against
 theirs, its splat into a NaN-filled grid, edge cases), K6 vs plain
 (NW = 160, both polarity modes, its binning passes against theirs, its
-splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer,
-the DDD17 linear probe from disk, T8-pretrain-recon, F8-finetune-recon,
+splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer
+(K5, the host voxelizer, each at 1 and 4 workers, and the histogram), the
+DDD17 linear probe from disk (K6 and the host voxelizer, each at 1 and 4
+workers), T8-pretrain-recon, F8-finetune-recon,
 U8-uda-recon (each with its trace, spans and K2's time), the
 ``frame2recon`` reference, and the summary. K1, K4, K5 and K6 are
 the tile-owner splats of ``csrc/tile_splat.cuh``. The kernels'
 launch counters are zeroed before each main-path run and read after it. Any
 failure raises and the script exits non-zero. The last line is ``{"ok":
-true, "device": {...}}``; before it come a ``{"kernels": [...]}`` line and
-the ``nvidia-smi`` name and power limit.
+true, "device": {...}}``; before it come a ``{"host": [...]}`` line, a
+``{"kernels": [...]}`` line and the ``nvidia-smi`` name and power limit.
 
-No JAX and nothing of the JAX package is imported. Needs one CUDA card and
-``nvcc`` (CUDA_HOME or /usr/local/cuda).
+No JAX and nothing of the JAX package is imported. Needs one CUDA card,
+``nvcc`` (CUDA_HOME or /usr/local/cuda) and a host C++ compiler (``CXX``,
+else ``c++`` or ``g++``).
 """
 import concurrent.futures
 import dataclasses
@@ -126,7 +141,9 @@ K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
                             # small gradient is set by its factors' size
 K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
 K56_REL_TOL = 1e-5          # K5, K6 vs plain, of max|plain|: atomics order
-GRID_STEPS = 3              # train steps through the grid-wire loaders
+GRID_STEPS = 6              # train steps through the DSEC grid-wire loader
+GRID_WORKERS = (1, 4)       # num_cpu_workers of the grid cells' runs
+HOST_GRID_REL_TOL = 1e-5    # host-voxelized grid vs K5's / K6's, of max
 RECON_GRAD_L2_TOL = 6e-2    # f32 frame2recon step, CUDA vs CPU, each
                             # gradient tensor's relative L2 error
 RECON_GRAD_MEDIAN_TOL = 1e-2  # ... its median over the tensors
@@ -459,27 +476,37 @@ def k2_phase(torch, k2, dev, flush):
     )
 
 
-def flagship_batch(s, k1, batch=8, seed=0):
-    """One synthetic flagship batch on the host (numpy): uniform events on
-    the 480x640 sensor packed onto the wire, random frames, block
-    superpixels, and pseudo-labels constant per superpixel block drawn
-    from a skewed class distribution (so a few steps can lower the
-    pseudo-label loss by learning the class prior). Returns
-    ``(batch, pack seconds)``."""
-    from openess_tpu_torch.data.device_voxelize import pack_wire_batch
-
+def flagship_events(s, batch=8, seed=0):
+    """``(rng, (x, y, p, t, valid))``: the flagship batch's ``batch * T``
+    windows of K uniform events on the 480x640 sensor, float64 times
+    sorted, all valid; ``rng`` continues for the rest of the batch."""
     rng = np.random.default_rng(seed)
-    H, W = (int(v) for v in s.img_size_b)
-    T, K, C = s.nr_events_data_b, s.nr_events_window_b, s.semseg_num_classes
-    nw = batch * T
+    nw, K = batch * s.nr_events_data_b, s.nr_events_window_b
     x = rng.uniform(0, 639, (nw, K)).astype(np.float32)
     y = rng.uniform(0, 479, (nw, K)).astype(np.float32)
     p = rng.integers(0, 2, (nw, K)).astype(np.float32)
     t = np.sort(rng.uniform(0, 5e4, (nw, K)), axis=1)
+    return rng, (x, y, p, t, np.ones((nw, K), bool))
+
+
+def flagship_batch(s, k1=None, batch=8, seed=0):
+    """One synthetic flagship batch on the host (numpy): uniform events on
+    the 480x640 sensor packed onto the wire by the C++ packer on every
+    core, random frames, block superpixels, and pseudo-labels constant per
+    superpixel block drawn from a skewed class distribution (so a few steps
+    can lower the pseudo-label loss by learning the class prior). Returns
+    ``(batch, pack seconds)``. ``k1`` is not used (older callers pass the
+    K1 module)."""
+    from openess_tpu_torch.data.device_voxelize import pack_wire_batch
+    from openess_tpu_torch.native import chunk_events_windows_host
+
+    H, W = (int(v) for v in s.img_size_b)
+    T, C = s.nr_events_data_b, s.semseg_num_classes
+    rng, events = flagship_events(s, batch, seed)
     t0 = time.perf_counter()
-    wire = k1.trim_wire_chunks(k1.chunk_events_batch(
-        x, y, p, t, np.ones((nw, K), bool), height=480, width=640,
-        t16=s.wire_t16))
+    wire = chunk_events_windows_host(*events, height=480, width=640,
+                                     t16=s.wire_t16,
+                                     n_threads=os.cpu_count())
     pack_s = time.perf_counter() - t0
     sp = block_superpixels(batch, H, W)
     pl = block_labels(rng, batch, H, W, C)
@@ -491,6 +518,73 @@ def flagship_batch(s, k1, batch=8, seed=0):
     }
     out.update(pack_wire_batch(wire, batch, T))
     return out, pack_s
+
+
+def host_row(host, **row):
+    """Append one row of host numbers (the ``{"host": [...]}`` line), with
+    the host's core count, and return it."""
+    row["cores"] = os.cpu_count()
+    host.append(row)
+    return row
+
+
+def packer_phase(smi, host):
+    """The C++ packer against the numpy chunker at the two training
+    batches: the flagship's (160 windows x 100 000 events, 480x640, the
+    v2 time wire) and DDD17's (160 x 32 000 integer pixels, 260x346), the
+    C++ packer on one thread and on every core, the numpy chunker once, in
+    the same run. The wires must be bit-identical (the C++ wire trimmed,
+    the numpy one sliced to its width, nothing cut but empty chunks)."""
+    from openess_tpu_torch.native import chunk_events_windows_host
+    from openess_tpu_torch.ops.voxelize_chunked import chunk_events_batch
+
+    phase("host packer: C++ vs numpy (flagship and DDD17 training batches)")
+    cores = os.cpu_count()
+    flag = flagship_settings()
+    probe = ddd17_probe_settings()
+    _, windows = ddd17_windows(probe)
+    b, t = len(windows), probe.nr_events_data_b
+    ddd = [np.stack([w[i] for w in windows]).reshape(b * t, -1)
+           for i in range(5)]
+    ddd[3] = ddd[3].astype(np.float64)
+    cases = (
+        ("flagship", flagship_events(flag)[1],
+         dict(height=480, width=640, t16=flag.wire_t16)),
+        ("DDD17", tuple(ddd), dict(height=260, width=346, t16=probe.wire_t16,
+                                   integer_coords=True)),
+    )
+    for name, events, kw in cases:
+        ms = {}
+        for n in sorted({1, cores}):
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                wire = chunk_events_windows_host(*events, n_threads=n, **kw)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            ms[n] = float(np.median(runs))
+        t0 = time.perf_counter()
+        ref = chunk_events_batch(*events, **kw)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        nbc, cap = wire[0].shape[1], ref[0].shape[1]
+        same = not ref[4][:, nbc:].any() and all(
+            g.dtype == r.dtype
+            and np.array_equal(g, r[:, :nbc] if r.ndim > 1 else r)
+            for g, r in zip(wire, ref))
+        nw, k = events[0].shape
+        print(f"{name} [{nw} windows x {k} events, {kw['height']}x"
+              f"{kw['width']}]: C++ 1 thread {ms[1]:.1f} ms, {cores} threads "
+              f"{ms[cores]:.1f} ms; numpy {numpy_ms:.1f} ms "
+              f"({numpy_ms / ms[cores]:.0f}x the C++ on every core); trimmed "
+              f"chunk axis {nbc} of {cap}; C++ and numpy wires "
+              f"{'bit-identical' if same else 'DIFFER'}; host cores {cores}; "
+              f"on {smi}")
+        host_row(host, name=f"packer {name}", windows=nw, events=k,
+                 cpp_ms_1_thread=ms[1], cpp_ms_all_cores=ms[cores],
+                 numpy_ms=numpy_ms, nbc=nbc, nbc_cap=cap, bit_identical=same)
+        if not same:
+            raise AssertionError(f"the C++ packer's {name} wire differs "
+                                 "from the numpy chunker's")
+        del ref, wire
 
 
 def nan_prefilled(torch, launch_into, ref):
@@ -1167,18 +1261,15 @@ def block_labels(rng, batch, h, w, classes, rows=10, cols=10):
                               axis=1).reshape(batch, h, w).astype(np.int32)
 
 
-def ddd17_batch(s, batch=8, seed=0):
-    """One synthetic DDD17 batch on the host: uniform integer-pixel events
-    on the 260x346 sensor, cut into T windows and packed onto the wire by
-    ``data/ddd17.py`` as the loader would, with block labels at 200x352.
-    Returns ``(batch, pack seconds)``."""
+def ddd17_windows(s, batch=8, seed=0):
+    """``(rng, windows)``: one synthetic DDD17 batch's padded windows,
+    uniform integer-pixel events on the 260x346 sensor cut into T windows
+    by ``data/ddd17.split_event_windows`` as the loader cuts them."""
     from openess_tpu_torch.data import ddd17
 
     rng = np.random.default_rng(seed)
     T, K = s.nr_events_data_b, s.nr_events_window_b
-    H, W = (int(v) for v in s.img_size_b)
     windows = []
-    t0 = time.perf_counter()
     for _ in range(batch):
         ev = np.stack([
             rng.integers(0, ddd17.WIDTH, T * K),
@@ -1188,6 +1279,19 @@ def ddd17_batch(s, batch=8, seed=0):
         ], axis=1)
         windows.append(ddd17.split_event_windows(ev, T, K,
                                                  s.fixed_duration_b))
+    return rng, windows
+
+
+def ddd17_batch(s, batch=8, seed=0):
+    """One synthetic DDD17 batch on the host: :func:`ddd17_windows` packed
+    onto the wire by ``data/ddd17.wire_batch`` (the C++ packer) as the
+    loader would, with block labels at 200x352. Returns ``(batch, seconds
+    to cut and pack the windows)``."""
+    from openess_tpu_torch.data import ddd17
+
+    H, W = (int(v) for v in s.img_size_b)
+    t0 = time.perf_counter()
+    rng, windows = ddd17_windows(s, batch, seed)
     out = ddd17.wire_batch(s, windows)
     pack_s = time.perf_counter() - t0
     out["label"] = block_labels(rng, batch, H, W, s.semseg_num_classes)
@@ -1550,7 +1654,26 @@ def finetune_reference_phase(torch, dev):
                              "CPU one")
 
 
-def ddd17_serving_phase(torch, dev, smi, zero_counts, read_counts):
+def serving_row(host, name, r, smi, budget_ms=50.0):
+    """Print and keep a served stream's latency: p50 and p95 per window
+    and its pack, upload and device medians, against the 20 Hz budget."""
+    lat = r.latency_ms
+    p50, p95 = (float(np.percentile(lat, q)) for q in (50, 95))
+    pack = float(np.median(r.pack_ms))
+    print(f"  p50 {p50:.2f} ms p95 {p95:.2f} ms per window "
+          f"({'within' if p95 <= budget_ms else 'over'} the {budget_ms:.0f} "
+          f"ms budget at p95): pack {pack:.2f} (C++ packer, 1 thread) "
+          f"upload {np.median(r.upload_ms):.2f} device "
+          f"{np.median(r.device_ms):.2f} (p95 "
+          f"{np.percentile(r.device_ms, 95):.2f}) ms; host cores "
+          f"{os.cpu_count()}; on {smi}")
+    host_row(host, name=f"serving {name}", windows=r.windows, p50_ms=p50,
+             p95_ms=p95, pack_ms=pack,
+             upload_ms=float(np.median(r.upload_ms)),
+             device_ms=float(np.median(r.device_ms)), budget_ms=budget_ms)
+
+
+def ddd17_serving_phase(torch, dev, smi, zero_counts, read_counts, host):
     """The streaming server on the DDD17 settings, S = 1, K3 gates: K4
     once and K3 three times per window."""
     from openess_tpu_torch.models.e2vid import initial_stream_state
@@ -1573,13 +1696,8 @@ def ddd17_serving_phase(torch, dev, smi, zero_counts, read_counts):
     got = read_counts()
     for line in report(r, 20.0, dev):
         print("  " + line)
-    lat = r.latency_ms
-    print(f"  p50 {np.percentile(lat, 50):.2f} ms p95 "
-          f"{np.percentile(lat, 95):.2f} ms per window: pack "
-          f"{np.median(r.pack_ms):.2f} upload {np.median(r.upload_ms):.2f} "
-          f"device {np.median(r.device_ms):.2f} (p95 "
-          f"{np.percentile(r.device_ms, 95):.2f}) ms; launches "
-          + " ".join(f"{k} {v}" for k, v in got.items()) + f"; on {smi}")
+    serving_row(host, "S1 DDD17, K3 gates", r, smi)
+    print("  launches " + " ".join(f"{k} {v}" for k, v in got.items()))
     want = initial_stream_state(1, 200, 352, dtype=torch.bfloat16, device=dev)
     checks = {
         "sensor 260x346, integer pixels": (server.sensor_h, server.sensor_w)
@@ -1963,7 +2081,7 @@ def k6_phase(torch, k56, dev, flush):
 class GridWireDataset:
     """One DSEC batch's side channels and padded windows, made once on the
     host; ``get_batch`` turns the windows into the batch's event keys
-    through ``data/dsec.event_batch`` (K5 on the card) as
+    through ``data/dsec.event_batch`` (K5 on the card, or the host C++) as
     ``DSECDataset.get_batch`` does after reading them, and keeps each
     call's host milliseconds (K5 is queued, not waited for)."""
 
@@ -1986,19 +2104,176 @@ class GridWireDataset:
         return batch
 
 
-def dsec_grid_phase(torch, dev, smi, windows, zero_counts, read_counts):
-    """The flagship pretrain trainer on the grid wire: ``wire_format:
-    grid``, ``host_voxelize: false``, the batch's windows voxelized by K5
-    inside the loader, ``GRID_STEPS`` steps through ``train_epoch``."""
+def timed_epoch(torch, trainer, get_ms):
+    """``Trainer.train_epoch`` with the host clock around it and at each
+    step's start; ``get_ms`` (the dataset's per-call list) is cleared
+    first. Returns ``(losses, wall ms, ms between step starts after the
+    first, steps)``."""
+    starts, step = [], trainer.sb.train_step
+
+    def stamped(batch, epoch):
+        starts.append(time.perf_counter())
+        return step(batch, epoch)
+
+    trainer.sb.train_step = stamped
+    get_ms.clear()
+    t0 = time.perf_counter()
+    avg = trainer.train_epoch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    trainer.sb.train_step = step
+    n = len(starts)
+    steady = (starts[-1] - starts[0]) * 1e3 / max(n - 1, 1)
+    return avg, wall, steady, n
+
+
+def loader_and_step_ms(torch, dev, get_batch, sb, batch, reps=3):
+    """In line and synchronized: ``get_batch`` (host work and any kernel it
+    queues), the upload (``to_device``, pinned, non-blocking), and the
+    train step on a resident ``batch`` by CUDA events; medians of
+    ``reps``."""
+    from openess_tpu_torch.training.trainer import to_device
+
+    get, up, steps = [], [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        hb = get_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        to_device(hb, dev)
+        torch.cuda.synchronize()
+        up.append((time.perf_counter() - t1) * 1e3)
+        get.append((t1 - t0) * 1e3)
+        del hb
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        sb.train_step(batch, 0)
+        b.record()
+        b.synchronize()
+        steps.append(a.elapsed_time(b))
+    return (float(np.median(get)), float(np.median(up)),
+            float(np.median(steps)))
+
+
+def report_loader(cell, how, workers, wall, steady, n, get_ms, loader,
+                  smi, host):
+    """Print and keep the loader's numbers of one grid-wire run: ms per
+    step through ``train_epoch`` (wall / steps, and between step starts
+    after the first, which leaves out the first batch's assembly), the
+    share of that wall time spent in ``get_batch`` (above 1 when workers
+    assemble side by side), and the share of the in-line loader time
+    (``get_batch`` and upload, synchronized) hidden behind the step:
+    ``(step + loader - steady) / loader``."""
+    get, up, step = loader
+    total = get + up
+    hidden = (step + total - steady) / total
+    share = sum(get_ms) / wall
+    print(f"[{cell}, event by {how}, num_cpu_workers {workers}] "
+          f"Trainer.train_epoch: {n} steps in {wall:.0f} ms ({wall / n:.1f} "
+          f"ms per step; {steady:.1f} between step starts after the "
+          f"first); get_batch {np.median(get_ms):.1f} ms a call in the "
+          f"workers = {share:.3f} of the epoch; in line: get_batch {get:.1f}"
+          f" ms + upload {up:.1f} ms (synchronized), step {step:.1f} ms "
+          f"(CUDA events, batch resident); share of the loader hidden "
+          f"behind the step {hidden:.3f}; host cores {os.cpu_count()}; on "
+          f"{smi}")
+    return host_row(host, name=f"{cell} loader", event=how, workers=workers,
+                    epoch_ms_per_step=wall / n, steady_ms_per_step=steady,
+                    get_batch_ms=float(np.median(get_ms)),
+                    get_batch_share=share, inline_get_batch_ms=get,
+                    inline_upload_ms=up, step_ms=step,
+                    loader_hidden_share=hidden)
+
+
+def prefetch_vs_inline(torch, trainer, data):
+    """The batches of one training epoch as ``Trainer`` delivers them (its
+    ``PrefetchLoader``, on the plan of a copy of its shuffle generator)
+    against the same indices assembled in line (``to_device(get_batch)``):
+    ``(every key of every batch equal, max |difference| of ``event`` over
+    max |in-line event|, the same between two in-line assemblies of the
+    first batch, (eval loss gap, the in-line batch's own run-to-run loss
+    spread, predictions equal, in-line predictions equal twice))``, the
+    eval step run on the first batch each way."""
+    import copy
+
+    from openess_tpu_torch.data.pipeline import batch_indices
+    from openess_tpu_torch.training.trainer import to_device
+
+    plan = batch_indices(len(data), trainer.s.batch_size_b, shuffle=True,
+                         rng=copy.deepcopy(trainer.np_rng), drop_last=True,
+                         pad_last=False)
+    equal, gap, first = True, 0.0, None
+    for (idx, _), batch in zip(plan, trainer._batches(data, True)):
+        inline = to_device(data.get_batch(idx), trainer.device)
+        equal &= sorted(batch) == sorted(inline) and all(
+            torch.equal(batch[k], inline[k]) for k in inline)
+        ref = inline["event"].float()
+        gap = max(gap, ((batch["event"].float() - ref).abs().max()
+                        / ref.abs().max()).item())
+        if first is None:
+            first, plan_first = (batch, inline), idx
+    again = to_device(data.get_batch(plan_first), trainer.device)["event"]
+    ref = first[1]["event"].float()
+    own = ((again.float() - ref).abs().max() / ref.abs().max()).item()
+    sb = trainer.sb
+    sb._set_mode(False)
+    with torch.no_grad():
+        (pa, la), (pb, lb), (pc, lc) = (
+            sb.eval_step(b) for b in (first[1], first[1], first[0]))
+    return equal, gap, own, ((lc - la).abs().item(), (lb - la).abs().item(),
+                             torch.equal(pa, pc), torch.equal(pa, pb))
+
+
+def check_prefetch(torch, trainer, data, how, workers, row, checks):
+    """Run :func:`prefetch_vs_inline`, print it, keep it in ``row`` and
+    add its checks: batches bit-identical when the host made ``event``
+    (K5 and K6 sum with atomics, so two launches may differ in the last
+    bits: within ``K56_REL_TOL`` there), and, for identical batches, the
+    eval step's loss within its own run-to-run spread."""
+    same, gap, own, (loss_gap, spread, preds, det) = prefetch_vs_inline(
+        torch, trainer, data)
+    print(f"  PrefetchLoader ({workers} workers) vs in line, one epoch's "
+          f"batches: {'bit-identical' if same else 'differ'} (event max "
+          f"gap {gap:.3e} of max; two in-line assemblies of the first "
+          f"{own:.3e}); eval step on the first: loss gap "
+          f"{loss_gap:.3e} (in line twice {spread:.3e}), predictions "
+          f"{'equal' if preds else 'differ'} (in line twice "
+          f"{'equal' if det else 'differ'})")
+    row.update(prefetch_bit_identical=same, prefetch_event_gap=gap,
+               inline_event_gap=own, prefetch_eval_loss_gap=loss_gap,
+               eval_loss_spread=spread)
+    device = how in ("K5", "K6")
+    checks["delivered batches equal in-line ones"] = (
+        gap <= K56_REL_TOL if device else same)
+    if same:
+        checks["eval on them as on in-line ones"] = (
+            loss_gap <= spread and (preds or not det))
+
+
+def dsec_grid_phase(torch, dev, smi, windows, zero_counts, read_counts,
+                    host, *, how="K5", workers=1, steps=GRID_STEPS):
+    """The flagship pretrain trainer on the grid wire, the batch's windows
+    turned into ``event`` inside the loader (``how``: K5 on the card with
+    ``host_voxelize: false``, ``host_voxelize`` on the host, or the
+    ``histogram``), ``steps`` steps through ``train_epoch`` with
+    ``num_cpu_workers`` = ``workers`` (the ``PrefetchLoader``'s threads).
+    The host grid is held against K5's on the same windows; with more
+    than one worker the delivered batches against in-line assembly."""
+    from openess_tpu_torch.data.dsec import event_batch
     from openess_tpu_torch.training.trainer import Trainer, to_device
 
-    phase("train on the DSEC grid wire: pretrain frame2voxel at full width, "
-          "bf16, K5 in the loader (Trainer)")
+    phase(f"train on the DSEC grid wire: pretrain frame2voxel at full width, "
+          f"bf16, event by {how} in the loader, num_cpu_workers {workers} "
+          "(Trainer, PrefetchLoader)")
     B = len(windows)
-    s = flagship_settings(e2vid_fused_gates=True, wire_format="grid",
-                          host_voxelize=False, save_checkpoint=False,
-                          batch_size_b=B)
-    T = s.nr_events_data_b
+    s = flagship_settings(
+        e2vid_fused_gates=True, wire_format="grid",
+        host_voxelize=how != "K5", save_checkpoint=False, batch_size_b=B,
+        num_cpu_workers=workers,
+        event_representation_b="histogram" if how == "histogram"
+        else "voxel_grid")
+    T, C = s.nr_events_data_b, s.input_channels_b
     H, W = (int(v) for v in s.img_size_b)
     rng = np.random.default_rng(3)
     side = {
@@ -2014,7 +2289,7 @@ def dsec_grid_phase(torch, dev, smi, windows, zero_counts, read_counts):
           "DSECDataset.get_batch after the file reads")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    data = GridWireDataset(s, side, windows, GRID_STEPS, dev)
+    data = GridWireDataset(s, side, windows, steps, dev)
     trainer = Trainer(s, data, None, seed=0, device=dev)
     sb = trainer.sb
     zero_counts()
@@ -2026,61 +2301,51 @@ def dsec_grid_phase(torch, dev, smi, windows, zero_counts, read_counts):
     print(f"step 0 (warm-up): {first}; the batch's event "
           f"{tuple(ev.shape)} {ev.dtype} on {ev.device}, launches "
           + " ".join(f"{k} {v}" for k, v in warm.items()))
+    gap = None
+    if how == "host_voxelize":
+        k5 = event_batch(dataclasses.replace(s, host_voxelize=False),
+                         windows, dev)["event"]
+        gap = ((ev - k5).abs().max() / k5.abs().max()).item()
+        print(f"host-voxelized grid vs K5's on the same windows: max|host - "
+              f"K5| {gap:.3e} of max|K5| (bound {HOST_GRID_REL_TOL:.0e})")
+        del k5
 
     zero_counts()
-    data.ms.clear()
-    t0 = time.perf_counter()
-    avg = trainer.train_epoch()
-    torch.cuda.synchronize()
-    epoch_s = time.perf_counter() - t0
+    avg, wall, steady, n = timed_epoch(torch, trainer, data.ms)
     counts = read_counts()
-    n = GRID_STEPS
-    print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
-          f"({epoch_s * 1e3 / n:.1f} ms per step, host clock); get_batch "
-          f"{np.median(data.ms):.1f} ms per batch on the host (K5 queued) = "
-          f"{sum(data.ms) / (epoch_s * 1e3):.3f} of the epoch; losses "
-          f"{avg}; launches " + " ".join(f"{k} {v}"
-                                         for k, v in counts.items()))
-    hist, events = [], []
-    for _ in range(5):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        hist.append(sb.train_step(batch, 0))
-        b.record()
-        events.append((a, b))
-    torch.cuda.synchronize()
-    step_ms = np.array([a.elapsed_time(b) for a, b in events])
-    loader_ms = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        data.get_batch(None)
-        torch.cuda.synchronize()
-        loader_ms.append((time.perf_counter() - t0) * 1e3)
+    loader = loader_and_step_ms(torch, dev, lambda: data.get_batch(None),
+                                sb, batch)
+    row = report_loader("T8-pretrain-grid", how, workers, wall, steady, n,
+                        data.ms, loader, smi, host)
+    row["host_vs_device_grid_rel"] = gap
+    print(f"  losses {avg}; launches "
+          + " ".join(f"{k} {v}" for k, v in counts.items()))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"train step p50 {np.percentile(step_ms, 50):.1f} ms p95 "
-          f"{np.percentile(step_ms, 95):.1f} ms (CUDA events, batch "
-          f"resident); loader {np.median(loader_ms):.1f} ms per batch to the "
-          f"grid on the card (stack, upload, K5; host clock, synchronized); "
-          f"peak memory {peak:.2f} GiB at B={B}; on {smi}")
+    print(f"  peak memory {peak:.2f} GiB at B={B}")
+    k5 = how == "K5"
     checks = {
         "every loss finite": all(np.isfinite(v) for v in first.values())
-        and all(np.isfinite(v) for v in avg.values())
-        and all(bool(torch.isfinite(v)) for h in hist for v in h.values()),
-        "event planar [B, T, 5, 440, 640] f32 on the card":
-        tuple(ev.shape) == (B, T, 5, H, W) and ev.dtype == torch.float32
+        and all(np.isfinite(v) for v in avg.values()),
+        f"event planar [B, T, {C}, 440, 640] f32 on the card":
+        tuple(ev.shape) == (B, T, C, H, W) and ev.dtype == torch.float32
         and ev.device.type == "cuda",
-        "K5 once per batch": counts["K5"] == n and warm["K5"] == 1,
+        "K5 once per batch" if k5 else "K5 never":
+        counts["K5"] == (n if k5 else 0) and warm["K5"] == int(k5),
         "K1 never": counts["K1"] == warm["K1"] == 0,
         "K3 60 per step": counts["K3"] == 60 * n,
         "K2 twice per step": counts["K2"] == 2 * n,
         "no K3 backward, K4, K6":
         counts["K3_bwd"] == counts["K4"] == counts["K6"] == 0,
     }
+    if gap is not None:
+        checks["host grid within the bound of K5's"] = gap <= HOST_GRID_REL_TOL
+    if workers > 1:
+        check_prefetch(torch, trainer, data, how, workers, row, checks)
     print("  checks: " + ", ".join(
         f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
     if not all(checks.values()):
         raise AssertionError(f"DSEC grid-wire checks failed: {checks}")
+    del trainer, data, batch, ev
     return counts
 
 
@@ -2127,98 +2392,111 @@ def write_ddd17_tree(root, rng, need, images=5, gap=50_000):
                 else f"00{stem}_slic_25.png"))
 
 
-def ddd17_disk_phase(torch, dev, smi, zero_counts, read_counts):
-    """The DDD17 linear probe read from disk on the grid wire: a tree
-    written here, ``build_datasets`` -> ``Trainer.train_epoch`` ->
-    ``val_epoch``, K6 in the loader."""
+def ddd17_disk_phase(torch, dev, smi, zero_counts, read_counts, root, host,
+                     *, how="K6", workers=1):
+    """The DDD17 linear probe read from the tree under ``root`` on the grid
+    wire: ``build_datasets`` -> ``Trainer.train_epoch`` -> ``val_epoch``,
+    ``event`` made in the loader by K6 (``host_voxelize: false``) or on the
+    host (``how="host_voxelize"``; held against K6's batch), with
+    ``num_cpu_workers`` = ``workers``; with more than one worker the
+    delivered batches against in-line assembly."""
     from openess_tpu_torch.data.loaders import build_datasets
     from openess_tpu_torch.training.trainer import Trainer, to_device
 
-    phase("linear probe on DDD17 read from disk, grid wire, at full width, "
-          "bf16, K6 in the loader (build_datasets, Trainer)")
-    with tempfile.TemporaryDirectory() as root:
-        s = ddd17_probe_settings(dataset_path_b=root, wire_format="grid",
-                                 host_voxelize=False, e2vid_fused_gates=True,
-                                 save_checkpoint=False)
-        t0 = time.perf_counter()
-        need = s.nr_events_data_b * s.nr_events_window_b
-        write_ddd17_tree(root, np.random.default_rng(4), need=need)
-        print(f"DDD17 tree written in {time.perf_counter() - t0:.1f} s (6 "
-              f"recordings of 5 masks, {need} events before the first)")
-        train, val = build_datasets(s, dev)
-        load_ms = []
-        read = train.get_batch
+    phase(f"linear probe on DDD17 read from disk, grid wire, at full width, "
+          f"bf16, event by {how} in the loader, num_cpu_workers {workers} "
+          "(build_datasets, Trainer, PrefetchLoader)")
+    k6 = how == "K6"
+    s = ddd17_probe_settings(dataset_path_b=root, wire_format="grid",
+                             host_voxelize=not k6, e2vid_fused_gates=True,
+                             save_checkpoint=False, num_cpu_workers=workers)
+    train, val = build_datasets(s, dev)
+    load_ms = []
+    read = train.get_batch
 
-        def timed(idx):
-            t1 = time.perf_counter()
-            out = read(idx)
-            load_ms.append((time.perf_counter() - t1) * 1e3)
-            return out
+    def timed(idx):
+        t1 = time.perf_counter()
+        out = read(idx)
+        load_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
 
-        train.get_batch = timed
-        torch.cuda.empty_cache()
-        trainer = Trainer(s, train, val, seed=0, device=dev)
-        sb, mset = trainer.sb, trainer.mset
-        n = len(train) // s.batch_size_b
-        zero_counts()
-        batch = to_device(train.get_batch(np.arange(s.batch_size_b)), dev)
-        ev = batch["event"]
-        first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
-        torch.cuda.synchronize()
-        print(f"train {len(train)} masks ({n} steps of {s.batch_size_b}), "
-              f"val {len(val)}; step 0 (warm-up): {first}; the batch's "
-              f"event {tuple(ev.shape)} {ev.dtype} on {ev.device}")
-        state0 = {f"{m}.{k}": v.clone()
-                  for m, sd in mset.state_dict().items()
-                  for k, v in sd.items()}
-        zero_counts()
-        load_ms.clear()
-        t0 = time.perf_counter()
-        avg = trainer.train_epoch()
-        torch.cuda.synchronize()
-        epoch_s = time.perf_counter() - t0
-        counts = read_counts()
-        state1 = {f"{m}.{k}": v for m, sd in mset.state_dict().items()
-                  for k, v in sd.items()}
-        moved = {k for k in state0 if not torch.equal(state0[k], state1[k])}
-        print(f"Trainer.train_epoch: {n} steps in {epoch_s:.2f} s "
-              f"({epoch_s * 1e3 / n:.1f} ms per step, host clock); get_batch "
-              f"{np.median(load_ms):.1f} ms per batch (host, K6 queued) = "
-              f"{sum(load_ms) / (epoch_s * 1e3):.3f} of the epoch; losses "
-              f"{avg}; launches " + " ".join(f"{k} {v}"
-                                             for k, v in counts.items())
-              + f"; on {smi}")
-        zero_counts()
-        summary = trainer.val_epoch()
-        torch.cuda.synchronize()
-        val_counts = read_counts()
-        print(f"Trainer.val_epoch: mIoU {summary['miou']:.2f} acc "
-              f"{summary['acc']:.2f} over {len(val)} masks in one padded "
-              "batch; launches " + " ".join(f"{k} {v}"
-                                            for k, v in val_counts.items()))
-        checks = {
-            "every loss finite": all(np.isfinite(v) for v in first.values())
-            and all(np.isfinite(v) for v in avg.values()),
-            "event planar [B, T, 5, 200, 352] f32 on the card":
-            tuple(ev.shape) == (s.batch_size_b, s.nr_events_data_b, 5, 200,
-                                352)
-            and ev.dtype == torch.float32 and ev.device.type == "cuda",
-            "only linear_probe.* moved": bool(moved) and all(
-                ".linear_probe." in k for k in moved),
-            "K6 once per batch": counts["K6"] == n and val_counts["K6"] == 1,
-            "K4 never": counts["K4"] == val_counts["K4"] == 0,
-            "K3 60 per batch": counts["K3"] == 60 * n
-            and val_counts["K3"] == 60,
-            "no K1, K2, K3 backward, K5": all(
-                c[k] == 0 for c in (counts, val_counts)
-                for k in ("K1", "K2", "K3_bwd", "K5")),
-            "mIoU in [0, 100]": 0.0 <= summary["miou"] <= 100.0,
-        }
-        print("  checks: " + ", ".join(
-            f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
-        if not all(checks.values()):
-            raise AssertionError(f"DDD17 from-disk checks failed: {checks}")
-        del trainer, train, val
+    train.get_batch = timed
+    torch.cuda.empty_cache()
+    trainer = Trainer(s, train, val, seed=0, device=dev)
+    sb, mset = trainer.sb, trainer.mset
+    idx = np.arange(s.batch_size_b)
+    zero_counts()
+    batch = to_device(train.get_batch(idx), dev)
+    ev = batch["event"]
+    first = {k: float(v) for k, v in sb.train_step(batch, 0).items()}
+    torch.cuda.synchronize()
+    print(f"train {len(train)} masks ({len(train) // s.batch_size_b} steps "
+          f"of {s.batch_size_b}), val {len(val)}; step 0 (warm-up): {first}; "
+          f"the batch's event {tuple(ev.shape)} {ev.dtype} on {ev.device}")
+    gap = None
+    if not k6:
+        ref_ds = build_datasets(dataclasses.replace(s, host_voxelize=False),
+                                dev)[0]
+        ref = ref_ds.get_batch(idx)["event"]
+        gap = ((ev - ref).abs().max() / ref.abs().max()).item()
+        print(f"host-voxelized batch vs K6's on the same masks: max|host - "
+              f"K6| {gap:.3e} of max|K6| (bound {HOST_GRID_REL_TOL:.0e}; "
+              "both resized 346 -> 352 and cropped)")
+        del ref_ds, ref
+    state0 = {f"{m}.{k}": v.clone()
+              for m, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    zero_counts()
+    avg, wall, steady, n = timed_epoch(torch, trainer, load_ms)
+    counts = read_counts()
+    state1 = {f"{m}.{k}": v for m, sd in mset.state_dict().items()
+              for k, v in sd.items()}
+    moved = {k for k in state0 if not torch.equal(state0[k], state1[k])}
+    loader = loader_and_step_ms(torch, dev, lambda: read(idx), sb, batch)
+    row = report_loader("L8-probe-DDD17-disk", how, workers, wall, steady, n,
+                        load_ms, loader, smi, host)
+    row["host_vs_device_grid_rel"] = gap
+    print(f"  losses {avg}; launches "
+          + " ".join(f"{k} {v}" for k, v in counts.items()))
+    zero_counts()
+    summary = trainer.val_epoch()
+    torch.cuda.synchronize()
+    val_counts = read_counts()
+    print(f"Trainer.val_epoch: mIoU {summary['miou']:.2f} acc "
+          f"{summary['acc']:.2f} over {len(val)} masks in "
+          f"{-(-len(val) // s.batch_size_b)} padded batches; launches "
+          + " ".join(f"{k} {v}" for k, v in val_counts.items()))
+    n_val = -(-len(val) // s.batch_size_b)
+    checks = {
+        "every loss finite": all(np.isfinite(v) for v in first.values())
+        and all(np.isfinite(v) for v in avg.values()),
+        "event planar [B, T, 5, 200, 352] f32 on the card":
+        tuple(ev.shape) == (s.batch_size_b, s.nr_events_data_b, 5, 200,
+                            352)
+        and ev.dtype == torch.float32 and ev.device.type == "cuda",
+        "only linear_probe.* moved": bool(moved) and all(
+            ".linear_probe." in k for k in moved),
+        "K6 once per batch" if k6 else "K6 never":
+        counts["K6"] == (n if k6 else 0)
+        and val_counts["K6"] == (n_val if k6 else 0),
+        "K4 never": counts["K4"] == val_counts["K4"] == 0,
+        "K3 60 per batch": counts["K3"] == 60 * n
+        and val_counts["K3"] == 60 * n_val,
+        "no K1, K2, K3 backward, K5": all(
+            c[k] == 0 for c in (counts, val_counts)
+            for k in ("K1", "K2", "K3_bwd", "K5")),
+        "mIoU in [0, 100]": 0.0 <= summary["miou"] <= 100.0,
+    }
+    if gap is not None:
+        checks["host grid within the bound of K6's"] = gap <= HOST_GRID_REL_TOL
+    if workers > 1:
+        train.get_batch = read
+        check_prefetch(torch, trainer, train, how, workers, row, checks)
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"DDD17 from-disk checks failed: {checks}")
+    del trainer, train, val, batch, ev
     return {k: counts[k] + val_counts[k] for k in counts}
 
 
@@ -2503,6 +2781,7 @@ def main():
     sys.path.insert(0, ROOT)
     from openess_tpu_torch.data.device_voxelize import WIRE_KEYS, upload_wire
     from openess_tpu_torch.models.e2vid import initial_stream_state
+    from openess_tpu_torch.native import chunk_events_windows_host
     from openess_tpu_torch.ops import _build
     from openess_tpu_torch.ops import lstm_gates as k3
     from openess_tpu_torch.ops import segment_pool as k2
@@ -2517,6 +2796,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    host = []  # the host's numbers: packer, serving, loaders
 
     phase("device")
     smi = nvidia_smi()
@@ -2561,10 +2841,11 @@ def main():
     xs, ys, ps, ts = (np.stack([w_[i] for w_ in wins]) for i in range(4))
     k1_err, k1_rows = 0.0, {}
     for t16 in (True, False):
-        wire = k1.chunk_events_batch(
+        wire = chunk_events_windows_host(
             xs.astype(np.float32), ys.astype(np.float32),
             ps.astype(np.float32), ts, np.ones((NW, K), bool),
-            height=H, width=W, t16=t16,
+            height=H, width=W, t16=t16, trim=False,
+            n_threads=os.cpu_count(),
         )
         d = upload_wire(dict(zip(WIRE_KEYS, wire)), dev)
         args = tuple(d[k] for k in WIRE_KEYS)
@@ -2695,12 +2976,8 @@ def main():
         for line in report(r, 20.0, dev):
             print("  " + line)
         lat = r.latency_ms
-        print(f"  p50 {np.percentile(lat, 50):.2f} ms p95 "
-              f"{np.percentile(lat, 95):.2f} ms per window: pack "
-              f"{np.median(r.pack_ms):.2f} upload {np.median(r.upload_ms):.2f} "
-              f"device {np.median(r.device_ms):.2f} (p95 "
-              f"{np.percentile(r.device_ms, 95):.2f}) ms; "
-              f"launches K1 {n1} K3 {n3}; on {smi}")
+        serving_row(host, f"S{S} DSEC, {label}", r, smi)
+        print(f"  launches K1 {n1} K3 {n3}")
         finite = bool(torch.isfinite(r.logits).all())
         want = initial_stream_state(S, 440, 640, dtype=torch.bfloat16,
                                     device=dev)
@@ -2755,12 +3032,14 @@ def main():
         if not ok:
             raise AssertionError(f"CUDA server disagrees with CPU: {err}")
 
+    packer_phase(smi, host)
+
     phase("pack one flagship batch (B=8, T=20, 100k events per window)")
     settings = flagship_settings(e2vid_fused_gates=True)
-    host_batch, pack_s = flagship_batch(settings, k1)
-    print(f"numpy packer: {pack_s:.1f} s for {8 * 20} windows (host, set-up: "
-          f"the same batch feeds every step below); wire chunk axis "
-          f"{host_batch['ev_x'].shape[2]}")
+    host_batch, pack_s = flagship_batch(settings)
+    print(f"C++ packer: {pack_s * 1e3:.0f} ms for {8 * 20} windows on "
+          f"{os.cpu_count()} threads (host, set-up: the same batch feeds "
+          f"every step below); wire chunk axis {host_batch['ev_x'].shape[2]}")
 
     kernels["K1"].update(k1_nw160_phase(torch, k1, dev, flush, host_batch))
 
@@ -2799,8 +3078,9 @@ def main():
     phase("pack one DDD17 batch (B=8, T=20, 32k events per window)")
     probe = ddd17_probe_settings(e2vid_fused_gates=True)
     ddd17_host, pack_s = ddd17_batch(probe)
-    print(f"numpy packer: {pack_s:.1f} s for {8 * 20} windows (host, "
-          f"set-up); wire chunk axis {ddd17_host['ev_x'].shape[2]}")
+    print(f"windows cut and C++ packer ({probe.num_cpu_workers} thread): "
+          f"{pack_s * 1e3:.0f} ms for {8 * 20} windows (host, set-up); wire "
+          f"chunk axis {ddd17_host['ev_x'].shape[2]}")
     kernels["K4"] = k4_phase(torch, k1, dev, flush, ddd17_host)
     launches["probe"] = downstream_phase(
         torch, dev, smi,
@@ -2810,18 +3090,33 @@ def main():
          "K6": 0},
         lambda k: ".linear_probe." in k, zero_counts, read_counts)
     launches["serving_ddd17"] = ddd17_serving_phase(
-        torch, dev, smi, zero_counts, read_counts)
+        torch, dev, smi, zero_counts, read_counts, host)
 
     # the grid wire: K5 and K6 in the loaders, then the trainers on them
     windows = dsec_windows(flagship_settings())
     kernels["K5"] = k5_phase(torch, k56, dev, flush, windows)
     kernels["K6"] = k6_phase(torch, k56, dev, flush)
     del flush
-    launches["dsec_grid"] = dsec_grid_phase(torch, dev, smi, windows,
-                                            zero_counts, read_counts)
+    runs = [("K5", w) for w in GRID_WORKERS] + [
+        ("host_voxelize", w) for w in GRID_WORKERS] + [
+        ("histogram", GRID_WORKERS[-1])]
+    for how, workers in runs:
+        launches[f"dsec_grid_{how}_{workers}"] = dsec_grid_phase(
+            torch, dev, smi, windows, zero_counts, read_counts, host,
+            how=how, workers=workers)
     del windows
-    launches["ddd17_grid"] = ddd17_disk_phase(torch, dev, smi, zero_counts,
-                                              read_counts)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        s = ddd17_probe_settings()
+        need = s.nr_events_data_b * s.nr_events_window_b
+        write_ddd17_tree(root, np.random.default_rng(4), need=need, images=10)
+        print(f"DDD17 tree written in {time.perf_counter() - t0:.1f} s (6 "
+              f"recordings of 10 masks, {need} events before the first)")
+        for how in ("K6", "host_voxelize"):
+            for workers in GRID_WORKERS:
+                launches[f"ddd17_grid_{how}_{workers}"] = ddd17_disk_phase(
+                    torch, dev, smi, zero_counts, read_counts, root, host,
+                    how=how, workers=workers)
 
     # the frame/recon workloads: the DeepLabV3 student (K2 on its f32
     # features and the teacher's in the pretrain step)
@@ -2873,6 +3168,7 @@ def main():
         rows.append({k: row[k] for k in order}
                     | {k: v for k, v in row.items() if k not in order})
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"host": host}))
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

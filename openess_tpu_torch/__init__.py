@@ -12,7 +12,11 @@ event wire -> K1 voxelizer -> E2VID step (K3 gate kernel when
 training on the event path (``train``, ``test``, ``training/``): the
 pretrain ``frame2voxel`` / ``recon2voxel`` step with the frozen ResNet-50
 teacher and superpixel pooling through the K2 kernel, the ``sup_only``
-step, the eval step, the trainer loop and checkpoints.
+step, the eval step, the trainer loop and checkpoints. The host's event
+code (the sorted-chunk packer, the host voxelizers, the histogram) is C++
+under ``csrc/``, built with the host compiler at first use and bound by
+``native.py``; ``data/pipeline.PrefetchLoader`` assembles batches ahead of
+the step.
 
 Module names follow ``openess_tpu`` so each counterpart is easy to find.
 Public functions keep the JAX package's NHWC layouts; convolutions run on

@@ -12,16 +12,18 @@ straight to 352x200.
 A sample's events are the slice of the memmaps before its image
 (:func:`extract_events`), split into T padded windows
 (:func:`split_event_windows`). The event keys of a batch
-(:func:`event_batch`), by ``tpu.wire_format``:
+(:func:`event_batch`), as the JAX package builds them:
 
-- ``raw_events``: the numpy packer's sorted-chunk wire (:func:`wire_batch`),
+- ``event_representation: histogram``, or ``tpu.wire_format: grid`` with
+  ``tpu.host_voxelize`` (the default): ``event``, planar
+  ``[B, T, C, 200, 352]`` f32 made on the host (:func:`host_voxelize`:
+  the native count images or bilinear-in-time grids, resized and
+  cropped);
+- ``raw_events``: the C++ packer's sorted-chunk wire (:func:`wire_batch`),
   voxelized by K4 inside the train step (``data/device_voxelize.py``);
-- ``grid`` with ``tpu.host_voxelize: false``: ``event``, planar
+- ``grid`` with ``host_voxelize: false``: ``event``, planar
   ``[B, T, Cout, 200, 352]`` f32 voxel windows made on the device by K6
-  (:func:`voxelize_grid`);
-- ``grid`` with ``host_voxelize`` and the ``histogram`` representation are
-  built by the JAX package's native host code, which the port does not
-  have yet (ROADMAP Queue 1 item 4): they raise.
+  (:func:`voxelize_grid`).
 """
 from __future__ import annotations
 
@@ -35,18 +37,19 @@ import torch.nn.functional as F
 
 from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import Settings
-from openess_tpu_torch.data.device_voxelize import pack_wire_batch
-from openess_tpu_torch.data.loaders import (
-    EVENT_OPTIONS,
-    SIDE_KEYS,
-    refuse_native_host_code,
+from openess_tpu_torch.data.device_voxelize import (
+    pack_wire_batch,
+    wire_reuse_ok,
 )
+from openess_tpu_torch.data.loaders import EVENT_OPTIONS, SIDE_KEYS
 from openess_tpu_torch.data.png import read_png_nearest, read_rgb
-from openess_tpu_torch.ops.voxelize import normalize_nonzero
-from openess_tpu_torch.ops.voxelize_chunked import (
-    chunk_events_batch,
-    trim_wire_chunks,
+from openess_tpu_torch.native import (
+    chunk_events_windows_host,
+    event_histogram_windows_host,
+    voxelize_bilinear_t_windows_host,
 )
+from openess_tpu_torch.ops.resize import resize_bilinear
+from openess_tpu_torch.ops.voxelize import normalize_nonzero
 from openess_tpu_torch.ops.voxelize_mxu import voxelize_windows_bilinear_t_mxu
 
 HEIGHT, WIDTH = 260, 346
@@ -143,22 +146,54 @@ def split_event_windows(events, num_windows: int, window_events: int,
     return x, y, p, t, valid
 
 
-def wire_batch(s: Settings, windows) -> dict:
-    """The ``ev_*`` raw-wire keys of a batch from its samples' windows (a
-    list of :func:`split_event_windows` results): packed at the 260x346
-    sensor with integer coordinates, the chunk axis trimmed to the bucketed
-    batch maximum."""
+def _flat_windows(s: Settings, windows):
+    """A batch's windows stacked into ``[B * T, K]`` arrays."""
     T, B = s.nr_events_data_b, len(windows)
     K = windows[0][0].shape[1]
-    stacked = [
-        np.stack([w[i] for w in windows]).reshape(B * T, K) for i in range(5)
-    ]
-    wire = chunk_events_batch(
-        stacked[0], stacked[1], stacked[2], stacked[3].astype(np.float64),
-        stacked[4], height=HEIGHT, width=WIDTH, integer_coords=True,
-        t16=s.wire_t16,
-    )
-    return pack_wire_batch(trim_wire_chunks(wire), B, T)
+    return [np.stack([w[i] for w in windows]).reshape(B * T, K)
+            for i in range(5)]
+
+
+def wire_batch(s: Settings, windows, *, reuse_buffers: bool = False) -> dict:
+    """The ``ev_*`` raw-wire keys of a batch from its samples' windows (a
+    list of :func:`split_event_windows` results): packed by the C++ packer
+    at the 260x346 sensor with integer coordinates on ``num_cpu_workers``
+    threads, the chunk axis trimmed to the bucketed batch maximum.
+    ``reuse_buffers`` hands out the packer's recycled buffers (only for a
+    batch that is copied before the next call but one)."""
+    x, y, p, t, valid = _flat_windows(s, windows)
+    wire = chunk_events_windows_host(
+        x, y, p, t.astype(np.float64), valid, height=HEIGHT, width=WIDTH,
+        integer_coords=True, n_threads=s.num_cpu_workers,
+        reuse_buffers=reuse_buffers, t16=s.wire_t16)
+    return pack_wire_batch(wire, len(windows), s.nr_events_data_b)
+
+
+def host_voxelize(s: Settings, windows) -> np.ndarray:
+    """The batch's ``event`` made on the host: per window the native
+    bilinear-in-time grid (``separate_pol`` as set) or, with the
+    ``histogram`` representation, the 2-channel count image, each with the
+    biased nonzero normalization when ``normalize_event``, in one call
+    parallel across the B * T windows; then resized to 352 columns
+    (``ops/resize.resize_bilinear``, ``align_corners=True``) and cropped by
+    60 rows. Planar ``[B, T, C, 200, 352]`` f32."""
+    T, B = s.nr_events_data_b, len(windows)
+    x, y, p, t, valid = _flat_windows(s, windows)
+    counts = valid.sum(axis=1)
+    norm = 2 if s.normalize_event_b else 0
+    if s.event_representation_b == "histogram":
+        g = event_histogram_windows_host(
+            x, y, p, counts, HEIGHT, WIDTH, norm_mode=norm,
+            n_threads=s.num_cpu_workers).transpose(0, 2, 3, 1)
+    else:
+        g = voxelize_bilinear_t_windows_host(
+            x, y, p, t, counts, s.nr_temporal_bins_b, HEIGHT, WIDTH,
+            separate_pol=s.separate_pol_b, norm_mode=norm,
+            n_threads=s.num_cpu_workers)
+    g = resize_bilinear(torch.from_numpy(np.ascontiguousarray(g)),
+                        out_h=HEIGHT, out_w=RESIZE_W, align_corners=True)
+    g = g[:, :HEIGHT - CROP_BOTTOM].permute(0, 3, 1, 2).contiguous()
+    return g.reshape((B, T) + g.shape[1:]).numpy()
 
 
 def voxelize_grid(s: Settings, x, y, p, t, valid, device) -> torch.Tensor:
@@ -186,10 +221,13 @@ def voxelize_grid(s: Settings, x, y, p, t, valid, device) -> torch.Tensor:
 
 def event_batch(s: Settings, windows, device) -> dict:
     """The event keys of a batch from its samples' windows (a list of
-    :func:`split_event_windows` results)."""
-    refuse_native_host_code(s, "DDD17", "K6")
+    :func:`split_event_windows` results). The wire's buffers are recycled
+    (``device_voxelize.wire_reuse_ok``) only for a CUDA ``device``."""
+    if s.event_representation_b == "histogram" or (
+            s.wire_format != "raw_events" and s.host_voxelize):
+        return {"event": host_voxelize(s, windows)}
     if s.wire_format == "raw_events":
-        return wire_batch(s, windows)
+        return wire_batch(s, windows, reuse_buffers=wire_reuse_ok(device))
     stacked = [np.stack([w[i] for w in windows]) for i in range(5)]
     return {"event": voxelize_grid(s, *stacked, device)}
 

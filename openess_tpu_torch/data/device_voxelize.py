@@ -30,6 +30,16 @@ DSEC_HEIGHT, DSEC_WIDTH = 480, 640  # DSEC event sensor, before the crop
 DSEC_CROP_BOTTOM = 40               # rows cut from the bottom (440 kept)
 
 
+def wire_reuse_ok(device) -> bool:
+    """Whether the packer may hand out its recycled wire buffers
+    (``native.chunk_events_windows_host(reuse_buffers=True)``): only when
+    the batch is copied before the buffers come round again. On a CUDA
+    device :func:`upload_wire` and the trainer's upload copy it through
+    pinned memory; on the CPU ``torch.from_numpy`` aliases it, so reuse
+    stays off."""
+    return torch.device(device).type == "cuda"
+
+
 def pack_wire_batch(wire, batch_size: int, num_windows: int) -> dict:
     """Chunker output tuple -> the ev_* batch keys (numpy in, numpy out)."""
     xq, yq, pq, tr, counts, r0s, trange = wire

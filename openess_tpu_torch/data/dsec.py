@@ -6,21 +6,31 @@ events and cuts them into ``nr_events_data`` padded windows; labels, frames,
 reconstructions, pseudo-labels and superpixels are PNGs beside them.
 ``h5py`` and ``PIL`` are imported only where a file is read.
 
-The event keys of a batch (:func:`event_batch`), by ``tpu.wire_format``:
+The event keys of a batch (:func:`event_batch`), as the JAX package
+builds them:
 
-- ``raw_events``: the numpy packer's sorted-chunk wire (``ev_*`` keys,
-  ``data/device_voxelize.py``), voxelized by K1 inside the train step;
-- ``grid`` with ``tpu.host_voxelize: false``: ``event``, planar
-  ``[B, T, bins, 440, 640]`` f32 voxel windows made on the device by K5
-  (:func:`voxelize_grid`); the tensor stays there, the trainer does not
-  copy it back;
-- ``grid`` with ``host_voxelize`` and the ``histogram`` representation are
-  built by the JAX package's native host code, which the port does not
-  have yet (ROADMAP Queue 1 item 4): they raise.
+- ``event_representation: histogram``: ``event``, planar
+  ``[B, T, 2, 440, 640]`` f32 count images made on the host
+  (``native.event_histogram_windows_host``), whatever the wire;
+- ``tpu.wire_format: raw_events``: the C++ packer's sorted-chunk wire
+  (``ev_*`` keys, ``data/device_voxelize.py``;
+  ``native.chunk_events_windows_host`` on ``num_cpu_workers`` threads),
+  voxelized by K1 inside the train step;
+- ``grid`` with ``tpu.host_voxelize`` (the default): ``event``, planar
+  ``[B, T, bins, 440, 640]`` f32 voxel windows made on the host in one
+  native call (``native.voxelize_trilinear_windows_host``);
+- ``grid`` with ``host_voxelize: false``: the same windows made on the
+  device by K5 (:func:`voxelize_grid`); the tensor stays there, the
+  trainer does not copy it back.
+
+Several batches may be assembled at once (``data/pipeline.PrefetchLoader``):
+a sequence's ``events.h5`` reads are serialized by its lock, the rest runs
+in parallel.
 """
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -33,19 +43,17 @@ from openess_tpu_torch.data.device_voxelize import (
     DSEC_HEIGHT,
     DSEC_WIDTH,
     pack_wire_batch,
+    wire_reuse_ok,
 )
 from openess_tpu_torch.data.event_slicer import EventSlicer
-from openess_tpu_torch.data.loaders import (
-    EVENT_OPTIONS,
-    SIDE_KEYS,
-    refuse_native_host_code,
-)
+from openess_tpu_torch.data.loaders import EVENT_OPTIONS, SIDE_KEYS
 from openess_tpu_torch.data.png import read_png, read_rgb
-from openess_tpu_torch.ops.voxelize import normalize_nonzero
-from openess_tpu_torch.ops.voxelize_chunked import (
-    chunk_events_batch,
-    trim_wire_chunks,
+from openess_tpu_torch.native import (
+    chunk_events_windows_host,
+    event_histogram_windows_host,
+    voxelize_trilinear_windows_host,
 )
+from openess_tpu_torch.ops.voxelize import normalize_nonzero
 from openess_tpu_torch.ops.voxelize_mxu import voxelize_windows_trilinear_mxu
 
 TRAIN_SEQUENCES = [
@@ -82,16 +90,33 @@ def voxelize_grid(s: Settings, x, y, p, t, valid, device) -> torch.Tensor:
 def event_batch(s: Settings, windows, device) -> dict:
     """The event keys of a batch from its samples' padded windows: a list
     of :meth:`DSECSequence.load_events` results, ``(x, y, p, t, valid)``
-    each ``[T, K]``."""
-    refuse_native_host_code(s, "DSEC", "K5")
+    each ``[T, K]``. The wire's buffers are recycled
+    (``device_voxelize.wire_reuse_ok``) only for a CUDA ``device``."""
     b, n_win = len(windows), s.nr_events_data_b
     k = windows[0][0].shape[1]
     stacked = [np.stack([w[i] for w in windows]) for i in range(5)]
+    x, y, p, t, valid = (a.reshape(b * n_win, k) for a in stacked)
+    H, W, ho = DSEC_HEIGHT, DSEC_WIDTH, DSEC_HEIGHT - DSEC_CROP_BOTTOM
+    norm = 1 if s.normalize_event_b else 0
+    workers = s.num_cpu_workers
+    if s.event_representation_b == "histogram":
+        g = event_histogram_windows_host(
+            x, y, p, valid.sum(axis=1), H, W, norm_mode=norm,
+            n_threads=workers)
+        return {"event": np.ascontiguousarray(g[:, :, :ho]).reshape(
+            b, n_win, 2, ho, W)}
     if s.wire_format == "raw_events":
-        wire = chunk_events_batch(
-            *(a.reshape(b * n_win, k) for a in stacked),
-            height=DSEC_HEIGHT, width=DSEC_WIDTH, t16=s.wire_t16)
-        return pack_wire_batch(trim_wire_chunks(wire), b, n_win)
+        wire = chunk_events_windows_host(
+            x, y, p, t, valid, height=H, width=W, n_threads=workers,
+            reuse_buffers=wire_reuse_ok(device), t16=s.wire_t16)
+        return pack_wire_batch(wire, b, n_win)
+    if s.host_voxelize:
+        bins = s.nr_temporal_bins_b
+        g = voxelize_trilinear_windows_host(
+            x, y, p, t, valid.sum(axis=1), bins, H, W,
+            crop_bottom=DSEC_CROP_BOTTOM, norm_mode=norm, n_threads=workers,
+            layout="chw")
+        return {"event": g.reshape(b, n_win, bins, ho, W)}
     return {"event": voxelize_grid(s, *stacked, device)}
 
 
@@ -134,6 +159,9 @@ class DSECSequence:
         ev_dir = self.seq_path / "events" / "left"
         self._h5f = h5py.File(str(ev_dir / "events.h5"), "r")
         self.slicer = EventSlicer(self._h5f)
+        # an h5py file is not safe for concurrent reads: the loader's
+        # workers take turns here
+        self._h5_lock = threading.Lock()
         with h5py.File(str(ev_dir / "rectify_map.h5"), "r") as f:
             self.rectify_map = f["rectify_map"][()]  # [480, 640, 2]
 
@@ -157,13 +185,15 @@ class DSECSequence:
             delta_us = T * s.delta_t_per_data_b * 1000
             ts_start = ts_end - delta_us
             per = delta_us / T
-            chunks = [
-                self.slicer.get_events(int(ts_start + i * per),
-                                       int(ts_start + (i + 1) * per))
-                for i in range(T)
-            ]
+            with self._h5_lock:
+                chunks = [
+                    self.slicer.get_events(int(ts_start + i * per),
+                                           int(ts_start + (i + 1) * per))
+                    for i in range(T)
+                ]
         else:
-            ev = self.slicer.get_events_fixed_num(ts_end, T * K)
+            with self._h5_lock:
+                ev = self.slicer.get_events_fixed_num(ts_end, T * K)
             n_loaded = ev["t"].size
             per = n_loaded // T
             chunks = [{k: v[i * per:(i + 1) * per] for k, v in ev.items()}

@@ -2,10 +2,10 @@
 
 Datasets expose ``__len__`` and ``get_batch(indices) -> dict`` in the batch
 convention of ``training/steps.py``: numpy arrays, except the grid wire's
-``event``, which is made on the device the datasets are given and stays
-there. The event keys that the JAX package builds with its native host code
-(the histogram, the grid voxelized on the host) are refused here for every
-dataset (:func:`refuse_native_host_code`).
+``event`` with ``tpu.host_voxelize: false``, which is made on the device
+the datasets are given and stays there. The histogram and the grid
+voxelized on the host are numpy, made by the port's host C++
+(``native.py``).
 """
 from __future__ import annotations
 
@@ -14,21 +14,6 @@ from openess_tpu_torch.config.settings import Settings
 
 SIDE_KEYS = ("frame", "recon", "label", "pl", "superpixel", "sam_feat")
 EVENT_OPTIONS = ("recon2voxel", "frame2voxel")
-
-
-def refuse_native_host_code(s: Settings, dataset: str, kernel: str):
-    """Raise for the event keys that the JAX package builds with its native
-    host code, which the port does not have yet: the histogram and the
-    grid wire with ``host_voxelize``."""
-    if s.event_representation_b == "histogram":
-        raise NotImplementedError(
-            f"the {dataset} event histogram is built by native host code: "
-            "ROADMAP Queue 1 item 4")
-    if s.wire_format != "raw_events" and s.host_voxelize:
-        raise NotImplementedError(
-            "tpu.host_voxelize: the grid is voxelized by native host code: "
-            "ROADMAP Queue 1 item 4; set host_voxelize: false to voxelize "
-            f"on the device ({kernel})")
 
 
 def build_datasets(s: Settings, device=None):

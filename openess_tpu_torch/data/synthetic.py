@@ -1,7 +1,7 @@
 """Synthetic ESS dataset: correlated events/frames/labels for tests and
 smoke runs. Own copy of ``openess_tpu/data/synthetic.py`` (numpy only): the
-same seed gives the same samples and, through the port's packer, the same
-wire batches.
+same seed gives the same samples and, through the port's C++ packer, the
+same wire batches.
 
 A tiny, self-consistent dataset exercising the full train path without
 DSEC/DDD17 on disk. Scenes are piecewise-constant label maps; frames/recons
@@ -119,15 +119,13 @@ class SyntheticESS:
 
     def raw_wire_batch(self, indices, num_bins: int = 5,
                        t16: bool = True) -> dict:
-        """Batch with events on the compact sorted-chunk wire, trimmed to
-        the bucketed batch-max chunk count; the train step voxelizes it on
-        the device (K1). ``t16`` is the v2 time wire (uint16 relative time,
-        7 B/event), the ``wire_t16`` default."""
+        """Batch with events on the compact sorted-chunk wire, packed by the
+        C++ packer and trimmed to the bucketed batch-max chunk count; the
+        train step voxelizes it on the device (K1). ``t16`` is the v2 time
+        wire (uint16 relative time, 7 B/event), the ``wire_t16``
+        default."""
         from openess_tpu_torch.data.device_voxelize import pack_wire_batch
-        from openess_tpu_torch.ops.voxelize_chunked import (
-            chunk_events_batch,
-            trim_wire_chunks,
-        )
+        from openess_tpu_torch.native import chunk_events_windows_host
 
         out = {k: [] for k in ("frame", "recon", "label", "pl",
                                "superpixel", "sam_feat")}
@@ -145,10 +143,10 @@ class SyntheticESS:
                 out[k].append(s[k])
         batch = {k: np.stack(v) for k, v in out.items()}
         cat = lambda a: np.concatenate(a, axis=0)
-        wire = trim_wire_chunks(chunk_events_batch(
+        wire = chunk_events_windows_host(
             cat(xs), cat(ys), cat(ps), cat(ts).astype(np.float64), cat(vs),
             height=self.height, width=self.width, t16=t16,
-        ))
+        )
         batch.update(pack_wire_batch(wire, len(indices), T))
         return batch
 

@@ -10,6 +10,16 @@ under ``csrc/`` it includes (``#include "..."``, followed through headers)
 and the flags, so an edited source or header is never served from a stale
 build. Each source is its own library. The build runs at first use, in the process that launches the
 kernel; nothing is built when a module is imported.
+
+The host route (:func:`build_host`, :func:`load_host`) builds the port's
+host C++ (``csrc/event_ops.cpp``, the event packer and host voxelizers
+that ``native.py`` binds) the same way, with the host compiler (``CXX``,
+else ``c++`` or ``g++`` on ``PATH``) called directly and
+``HOST_CXX_FLAGS``. Its library is named by a hash of the source, the flags,
+the compiler's version and the macros ``-march=native`` defines on this
+host, so a library built from an older source, or for another CPU, is
+never loaded. A failed build raises with the compiler's error; nothing
+falls back.
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ import functools
 import hashlib
 import os
 import re
+import shlex
 import shutil
 import subprocess
 import threading
@@ -30,6 +41,11 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+HOST_CXX_FLAGS = (
+    "-O3", "-march=native", "-ffast-math", "-fPIC", "-shared", "-std=c++17",
+    "-pthread",
 )
 
 _LOCK = threading.Lock()
@@ -128,3 +144,88 @@ def launch(fn, device: torch.device, *args):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
+
+
+def host_compiler() -> list[str]:
+    """The host C++ compiler's command: ``CXX`` (split like a shell word
+    list), else ``c++`` or ``g++`` on ``PATH``. Raises when none is
+    found."""
+    cxx = shlex.split(os.environ.get("CXX", ""))
+    if cxx:
+        found = shutil.which(cxx[0])
+        if found is None:
+            raise RuntimeError(
+                f"CXX={os.environ['CXX']!r} names no compiler on PATH: the "
+                "host C++ of openess_tpu_torch (csrc/event_ops.cpp) is built "
+                "from source at first use")
+        return [found, *cxx[1:]]
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found is not None:
+            return [found]
+    raise RuntimeError(
+        "no host C++ compiler (set CXX or put c++ or g++ on PATH): the host "
+        "C++ of openess_tpu_torch (csrc/event_ops.cpp) is built from source "
+        "at first use")
+
+
+@functools.cache
+def _host_identity(cxx: tuple) -> bytes:
+    """The compiler's version and the macros ``-march=native`` defines with
+    it here (the instruction sets the library will use)."""
+    out = []
+    for args in (["--version"], ["-march=native", "-dM", "-E", "-x", "c++",
+                                 os.devnull]):
+        proc = subprocess.run([*cxx, *args], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{' '.join(cxx)} {' '.join(args)} failed (exit "
+                f"{proc.returncode}):\n{proc.stderr[-4000:]}")
+        out.append(proc.stdout)
+    return "\0".join(out).encode()
+
+
+def host_library_path(source: str) -> str:
+    """Where the host library for ``csrc/<source>`` lives once built with
+    this host's compiler."""
+    cxx = tuple(host_compiler())
+    digest = hashlib.sha256(" ".join(HOST_CXX_FLAGS).encode())
+    digest.update(_host_identity(cxx))
+    with open(os.path.join(CSRC_DIR, source), "rb") as f:
+        digest.update(source.encode() + b"\0" + f.read())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_host_{digest.hexdigest()[:16]}.so")
+
+
+def build_host(source: str) -> str:
+    """Compile the host C++ ``csrc/<source>`` unless its library exists;
+    return its path. The compiler's output is kept beside it as ``.log``;
+    a failed build raises with the compiler's command and stderr."""
+    out = host_library_path(source)
+    if os.path.isfile(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [*host_compiler(), *HOST_CXX_FLAGS, "-o", tmp,
+           os.path.join(CSRC_DIR, source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(os.path.splitext(out)[0] + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"{cmd[0]} failed on {source} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load the host library of ``csrc/<source>``
+    once per process."""
+    key = "host:" + source
+    with _LOCK:
+        lib = _LIBS.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(build_host(source))
+            _LIBS[key] = lib
+        return lib

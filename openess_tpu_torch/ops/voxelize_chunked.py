@@ -223,14 +223,19 @@ def pad_wire_chunks(wire, nbc: int):
 WIRE_NBC_BUCKETS = (4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 160, 192, 224)
 
 
+def bucket_nbc(used: int, cap: int) -> int:
+    """A chunk count rounded up to ``WIRE_NBC_BUCKETS``, at most ``cap``."""
+    return next((min(b, cap) for b in WIRE_NBC_BUCKETS if b >= used), cap)
+
+
 def trim_wire_chunks(wire):
     """Cut a chunked wire's chunk axis to the bucketed batch-max USED chunk
-    count (never above its current width): what the JAX package's batch
-    packer ships by default. Used chunks are a prefix, so nothing is lost."""
+    count (never above its current width): what the C++ packer ships by
+    default (``native.chunk_events_windows_host(trim=True)``), here as its
+    plain version. Used chunks are a prefix, so nothing is lost."""
     counts = wire[4]
-    cap = counts.shape[1]
     used = int((counts > 0).sum(axis=1).max(initial=0))
-    nbc = next((min(b, cap) for b in WIRE_NBC_BUCKETS if b >= used), cap)
+    nbc = bucket_nbc(used, counts.shape[1])
     return tuple(
         np.ascontiguousarray(a[:, :nbc]) if a.ndim >= 2 else a for a in wire
     )

@@ -6,7 +6,8 @@ Each takes flat ``[num_windows * K]`` padded events (``x, y, p, t`` and a
 bool ``valid``) and returns the per-window grids ``[num_windows * Cout, H,
 W]`` f32. On a CUDA tensor the wrapper launches its kernels from
 ``csrc/voxelize_grid.cu``, counting one launch of the voxelizer in
-``.launches``; on a CPU tensor it runs its plain version, the exact scatter
+``.launches`` (under a lock: the loader's worker threads launch them); on
+a CPU tensor it runs its plain version, the exact scatter
 of ``ops/voxelize.py``. Any other device raises.
 
 Both read the raw events: their passes bin them by output tile on the card
@@ -25,6 +26,7 @@ plain versions by the order of the f32 sums only.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -40,6 +42,14 @@ from openess_tpu_torch.ops.voxelize import (
     voxel_grid_bilinear_t,
     voxelize_windows_trilinear,
 )
+
+_COUNT_LOCK = threading.Lock()
+
+
+def _count_launch(fn):
+    with _COUNT_LOCK:
+        fn.launches += 1
+
 
 def _check_events(x, y, p, t, valid, num_windows: int) -> int:
     """Validate the flat event arrays; return the events per window."""
@@ -363,7 +373,7 @@ def voxelize_windows_trilinear_mxu(x, y, p, t, valid, *, num_windows: int,
     grid = torch.empty((nw * C, H, W), dtype=torch.float32, device=dev)
     splat_binned_trilinear(*binning, grid, num_windows=nw,
                            plan=tile_plan(C, H, W))
-    voxelize_windows_trilinear_mxu.launches += 1
+    _count_launch(voxelize_windows_trilinear_mxu)
     return grid
 
 
@@ -409,7 +419,7 @@ def voxelize_windows_bilinear_t_mxu(x, y, p, t, valid, *, num_windows: int,
     grid = torch.empty((nw * cout, H, W), dtype=torch.float32, device=dev)
     splat_binned_bilinear_t(*binning, grid, num_windows=nw, num_bins=C,
                             separate_pol=separate_pol, plan=plan)
-    voxelize_windows_bilinear_t_mxu.launches += 1
+    _count_launch(voxelize_windows_bilinear_t_mxu)
     return grid
 
 

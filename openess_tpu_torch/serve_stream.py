@@ -3,7 +3,8 @@
 The PyTorch/CUDA form of ``tools/serve_stream.py``: carried ConvLSTM state
 and one event window of compute per frame.
 
-  host:   pack the window's raw events onto the sorted-chunk wire (numpy)
+  host:   pack the window's raw events onto the sorted-chunk wire (the
+          port's C++ packer, ``native.chunk_events_windows_host``)
   device: voxelize (K1; K4, resize and crop for DDD17) -> E2VID step (K3
           when tpu.e2vid_fused_gates) -> SemSegE2VID head -> argmax ->
           uint8 labels
@@ -45,10 +46,8 @@ from openess_tpu_torch.data.device_voxelize import (
     voxelize_wire,
 )
 from openess_tpu_torch.models.e2vid import initial_stream_state
-from openess_tpu_torch.ops.voxelize_chunked import (
-    chunk_events_batch,
-    pad_wire_chunks,
-)
+from openess_tpu_torch.native import chunk_events_windows_host
+from openess_tpu_torch.ops.voxelize_chunked import pad_wire_chunks
 from openess_tpu_torch.training.build import build_models, serving_models
 
 
@@ -129,18 +128,21 @@ class StreamServer:
         )
 
     def pack(self, x, y, p, t) -> dict:
-        """One window's events, copied to every stream, on the host wire.
-        The chunk axis is pinned to its high-water mark so the wire keeps
-        one shape across windows (sparser windows are zero-padded)."""
+        """One window's events, copied to every stream, on the host wire:
+        the C++ packer on one thread, the chunk axis trimmed to the bucketed
+        count, then zero-padded up to its high-water mark over the windows
+        served so far, so the wire's shape changes only when a window needs
+        more chunks than any before it."""
         S = self.streams
         xs = np.broadcast_to(x.astype(np.float32), (S, x.size))
         ys = np.broadcast_to(y.astype(np.float32), (S, y.size))
         ps = np.broadcast_to(p.astype(np.float32), (S, p.size))
         ts = np.broadcast_to(t.astype(np.float64), (S, t.size))
         va = np.ones((S, x.size), bool)
-        wire = chunk_events_batch(
+        wire = chunk_events_windows_host(
             xs, ys, ps, ts, va, height=self.sensor_h, width=self.sensor_w,
-            integer_coords=self.integer_coords, t16=self.s.wire_t16,
+            n_threads=1, integer_coords=self.integer_coords,
+            t16=self.s.wire_t16,
         )
         self.pinned_nbc = max(self.pinned_nbc, wire[0].shape[1])
         wire = pad_wire_chunks(wire, self.pinned_nbc)

@@ -2,10 +2,11 @@
 counterpart of ``openess_tpu/training/trainer.py``.
 
 One Trainer serves every ported workload; the differences live in
-``StepBuilder.compute_losses``. Batches are assembled in line: the
-prefetching loader (``PrefetchLoader``, ROADMAP Queue 1 item 8) and the
-qualitative dumps (item 3) are not ported yet. A batch's grid-wire
-``event`` is already on the device and is not copied.
+``StepBuilder.compute_losses``. Batches are assembled and uploaded by
+``data/pipeline.PrefetchLoader`` on ``num_cpu_workers`` threads while the
+device runs the step before them; the qualitative dumps (ROADMAP Queue 1
+item 3) are not ported yet. A batch's grid-wire ``event`` made by K5 or
+K6 is already on the device and is not copied.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from openess_tpu_torch.config.settings import Settings
+from openess_tpu_torch.data.pipeline import PrefetchLoader
 from openess_tpu_torch.metrics import MetricsSemseg
 from openess_tpu_torch.training import checkpoint as ckpt
 from openess_tpu_torch.training.build import (
@@ -29,34 +31,21 @@ from openess_tpu_torch.training.steps import StepBuilder
 log = logging.getLogger("openess_tpu_torch")
 
 
-def batch_indices(n: int, batch_size: int, *, shuffle: bool, rng,
-                  drop_last: bool, pad_last: bool):
-    """Yield ``(indices, valid)`` per batch. ``drop_last`` drops a trailing
-    partial batch (training). ``pad_last`` pads it to ``batch_size`` by
-    repeating its last sample and gives every batch a bool ``valid`` mask
-    (validation: fixed shapes, exact metrics); otherwise ``valid`` is
-    None."""
-    order = rng.permutation(n) if shuffle else np.arange(n)
-    stop = n - batch_size + 1 if drop_last else n
-    for i in range(0, stop, batch_size):
-        idx = order[i:i + batch_size]
-        if not pad_last:
-            yield idx, None
-            continue
-        valid = np.arange(batch_size) < len(idx)
-        pad = batch_size - len(idx)
-        if pad:
-            idx = np.concatenate([idx, np.full(pad, idx[-1])])
-        yield idx, valid
-
-
 def to_device(batch: dict, device) -> dict:
-    """Batch -> tensors on ``device``: numpy arrays are copied up; a tensor
-    already there (the grid wire's ``event``, made on the device) passes
-    through as it is."""
-    return {k: (v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.ascontiguousarray(v))).to(device)
-            for k, v in batch.items()}
+    """Batch -> tensors on ``device``: numpy arrays are copied up, to a
+    CUDA device through pinned memory with a copy that does not block the
+    host (it queues on the current stream, ahead of the step that reads
+    it); a tensor already there (the grid wire's ``event``, made on the
+    device) passes through as it is."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, torch.Tensor):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+            if device.type == "cuda":
+                v = v.pin_memory()
+        out[k] = v.to(device, non_blocking=True)
+    return out
 
 
 class Trainer:
@@ -105,14 +94,12 @@ class Trainer:
     def _batches(self, dataset, train: bool):
         # training drops the trailing partial batch; validation keeps it,
         # padded, with the `valid` mask keeping the metrics exact
-        for idx, valid in batch_indices(
-            len(dataset), self.s.batch_size_b, shuffle=train,
-            rng=self.np_rng, drop_last=train, pad_last=not train,
-        ):
-            batch = dataset.get_batch(idx)
-            if valid is not None:
-                batch["valid"] = valid
-            yield to_device(batch, self.device)
+        yield from PrefetchLoader(
+            dataset, self.s.batch_size_b, shuffle=train, rng=self.np_rng,
+            put_fn=lambda b: to_device(b, self.device), device=self.device,
+            num_workers=self.s.num_cpu_workers, drop_last=train,
+            pad_last=not train,
+        )
 
     def train_epoch(self) -> dict:
         """One pass over the training set. Every batch's losses accumulate

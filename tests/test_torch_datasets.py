@@ -119,6 +119,32 @@ def test_dsec_batch_matches_jax(dsec_root, kw):
     tds.close()
 
 
+@pytest.mark.parametrize("kw", [
+    dict(host_voxelize=True),
+    dict(host_voxelize=True, config_option="frame2voxel",
+         normalize_event_b=True),
+    dict(event_representation_b="histogram"),
+    dict(event_representation_b="histogram", wire_format="raw_events",
+         normalize_event_b=True),
+])
+def test_dsec_host_event_batch_matches_jax(dsec_root, kw):
+    """The event keys the port builds with its host C++ on a DSEC tree (the
+    grid voxelized on the host, the histogram, which wins over either wire)
+    against the JAX dataset's, made by the JAX package's native library
+    from the same source: within 1e-6 of the max (measured 0)."""
+    from openess_tpu.data.dsec import DSECDataset as JDSEC
+
+    js, ts = dsec_settings(dsec_root, **kw)
+    jds, tds = JDSEC(js, "train"), tdsec.DSECDataset(ts, "train", "cpu")
+    jb, tb = jds.get_batch([0, 7]), tds.get_batch([0, 7])
+    _assert_batches_match(jb, tb, grid_tol=1e-6)
+    c = 2 if ts.event_representation_b == "histogram" else 5
+    assert tb["event"].shape == (2, 2, c, 440, 640)
+    assert tb["event"].dtype == np.float32
+    assert not any(k.startswith("ev_") for k in tb)
+    tds.close()
+
+
 def test_dsec_splits_and_skip_ratio(dsec_root):
     from openess_tpu.data.dsec import DSECDataset as JDSEC
 
@@ -163,8 +189,15 @@ def test_dsec_slicer_matches_jax(dsec_root):
 def test_dsec_event_batch_is_driven_without_a_file(rng):
     """``event_batch`` turns padded windows into the batch's event keys with
     no file and no ``h5py``: the grid wire (K5's plain version) against the
-    JAX package's device voxelizer, and the refused branches."""
+    JAX package's device voxelizer, and the host branches (the grid
+    voxelized on the host, the histogram) against the JAX package's native
+    calls on the same windows, within 1e-6 of the max (measured 0: one
+    source, one set of flags)."""
     from openess_tpu.data.dsec import _device_voxelizer
+    from openess_tpu.native import (
+        event_histogram_windows_host,
+        voxelize_trilinear_windows_host,
+    )
 
     T, K = 3, 400
     windows = []
@@ -184,10 +217,22 @@ def test_dsec_event_batch_is_driven_without_a_file(rng):
     ref = np.asarray(_device_voxelizer(T, 5, 480, 640, False, 40)(*stacked))
     assert tuple(got.shape) == ref.shape == (2, T, 5, 440, 640)
     assert _rel(got.numpy(), ref) <= GRID_TOL
-    for bad in (dict(host_voxelize=True), dict(event_representation_b=
-                                               "histogram")):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            tdsec.event_batch(dataclasses.replace(ts, **bad), windows, "cpu")
+    flat = [a.reshape(2 * T, K) for a in stacked]
+    counts = flat[4].sum(axis=1)
+    for kw, ref in (
+        (dict(host_voxelize=True), voxelize_trilinear_windows_host(
+            *flat[:4], counts, 5, 480, 640, crop_bottom=40, norm_mode=1,
+            layout="chw").reshape(2, T, 5, 440, 640)),
+        (dict(event_representation_b="histogram"),
+         event_histogram_windows_host(*flat[:3], counts, 480, 640,
+                                      norm_mode=1)[:, :, :440]
+         .reshape(2, T, 2, 440, 640)),
+    ):
+        got = tdsec.event_batch(dataclasses.replace(
+            ts, normalize_event_b=True, **kw), windows, "cpu")["event"]
+        assert isinstance(got, np.ndarray) and got.shape == ref.shape
+        assert np.abs(ref).max() > 0
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
 def test_grid_wire_casts_times_to_f32_before_the_window_start(rng):
@@ -276,6 +321,52 @@ def test_ddd17_batch_matches_jax(ddd17_root, kw):
                             for i in range(2)]).reshape(got.shape)
             assert np.abs(ref).max() > 0
             assert _rel(got, ref) <= GRID_TOL
+
+
+@pytest.mark.parametrize("kw", [
+    dict(host_voxelize=True),
+    dict(host_voxelize=True, separate_pol_b=True, normalize_event_b=True,
+         config_option="frame2voxel"),
+    dict(event_representation_b="histogram"),
+    dict(event_representation_b="histogram", wire_format="raw_events",
+         normalize_event_b=True),
+])
+def test_ddd17_host_event_batch_matches_jax(ddd17_root, kw):
+    """The event keys the port builds with its host C++ on a DDD17 tree
+    against the JAX dataset's: the native grids or histograms at the
+    sensor size within 1e-6 of the max (measured 0), and the batch after
+    the 346 -> 352 resize and the crop within ``RESIZED_TOL`` (the resize
+    computes its source positions in f32 here, in f64 in the JAX
+    package)."""
+    from openess_tpu.data.ddd17 import DDD17Dataset as JDDD17
+    from openess_tpu.native import (
+        event_histogram_windows_host as jhist,
+        voxelize_bilinear_t_windows_host as jbil,
+    )
+    from openess_tpu_torch import native as tnative
+
+    js, ts = ddd17_settings(ddd17_root, **kw)
+    jds, tds = JDDD17(js, "train"), tddd.DDD17Dataset(ts, "train", "cpu")
+    jb, tb = jds.get_batch([0, 4]), tds.get_batch([0, 4])
+    _assert_batches_match(jb, tb, grid_tol=RESIZED_TOL)
+    hist = ts.event_representation_b == "histogram"
+    c = 2 if hist else (10 if ts.separate_pol_b else 5)
+    assert tb["event"].shape == (2, 2, c, 200, 352)
+    assert not any(k.startswith("ev_") for k in tb)
+    x, y, p, t, valid = (np.stack([tds.load_events(i)[j] for i in (0, 4)])
+                         .reshape(4, -1) for j in range(5))
+    norm = 2 if ts.normalize_event_b else 0
+    if hist:
+        args = (x, y, p, valid.sum(1), 260, 346)
+        got = tnative.event_histogram_windows_host(*args, norm_mode=norm)
+        ref = jhist(*args, norm_mode=norm)
+    else:
+        args = (x, y, p, t, valid.sum(1), 5, 260, 346)
+        kw_ = dict(separate_pol=ts.separate_pol_b, norm_mode=norm)
+        got = tnative.voxelize_bilinear_t_windows_host(*args, **kw_)
+        ref = jbil(*args, **kw_)
+    assert np.abs(ref).max() > 0
+    assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
 
 
 def test_ddd17_splits_skip_ratio_and_side_channels(ddd17_root):

@@ -513,6 +513,57 @@ def test_grid_wire_on_the_card_matches_the_cpu(cuda, dataset):
     assert (out[1].cpu() - out[0]).abs().max() <= 1e-5 * out[0].abs().max()
 
 
+@pytest.mark.parametrize("wire", ["grid", "raw_events"])
+def test_prefetch_loader_on_the_card_matches_inline(cuda, wire):
+    """DSEC batches assembled by three loader workers, each on its own
+    stream, against the same batches assembled in line: on the grid wire
+    K5 runs inside ``get_batch`` (its grid within 1e-5 of the in-line
+    one's max: the atomics' order), on the raw wire the C++ packer hands
+    out its recycled buffers (``wire_reuse_ok`` on a card) and every key
+    is equal. The consumer reads each batch on its own stream."""
+    from openess_tpu_torch.config.settings import Settings
+    from openess_tpu_torch.data import dsec
+    from openess_tpu_torch.data.pipeline import PrefetchLoader, batch_indices
+    from openess_tpu_torch.training.trainer import to_device
+
+    rng = np.random.default_rng(4)
+    n, T, K = 6, 2, 3000
+    events = [a.numpy().reshape(n, T, K) for a in _grid_events(
+        rng, n * T, K, 480, 640, "dense", False)]
+    windows = [tuple(a[i] for a in events) for i in range(n)]
+    s = Settings(nr_events_data_b=T, wire_format=wire, host_voxelize=False)
+
+    class Windows:
+        def __len__(self):
+            return n
+
+        def get_batch(self, idx):
+            ws = [windows[i] for i in idx]
+            out = dsec.event_batch(s, ws, cuda)
+            out["label"] = np.stack([w[4] for w in ws])
+            return out
+
+    data = Windows()
+    loader = PrefetchLoader(data, 2, shuffle=True,
+                            rng=np.random.default_rng(0), device=cuda,
+                            put_fn=lambda b: to_device(b, cuda),
+                            num_workers=3)
+    plan = batch_indices(n, 2, shuffle=True, rng=np.random.default_rng(0),
+                         drop_last=True, pad_last=False)
+    got = [{k: v.clone() for k, v in b.items()} for b in loader]
+    assert len(got) == 3
+    for (idx, _), batch in zip(plan, got):
+        ref = to_device(data.get_batch(idx), cuda)
+        assert sorted(batch) == sorted(ref)
+        for k in ref:
+            assert batch[k].device.type == "cuda", k
+            if k == "event":
+                gap = (batch[k] - ref[k]).abs().max()
+                assert gap <= 1e-5 * ref[k].abs().max()
+            else:
+                assert torch.equal(batch[k], ref[k]), k
+
+
 def test_k3_kernel_refuses_strided_input(cuda):
     g = torch.zeros(1, 4, 4, 32, device=cuda).permute(0, 2, 1, 3)
     with pytest.raises(ValueError, match="contiguous"):

@@ -75,6 +75,48 @@ def test_no_jax_or_jax_package_in_source(path):
     assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
 
 
+def _port_sources():
+    csrc = sorted(glob.glob(os.path.join(PORT, "csrc", "*")))
+    return _port_files() + csrc
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_native_library_named(path):
+    """No module of the port, no source under ``csrc/`` and not
+    ``chip_smoke.py`` names the JAX package's native directory or its
+    library: the port builds and loads its own copy."""
+    with open(path) as f:
+        text = f.read()
+    for word in ("native/", "libevent_ops"):
+        assert word not in text, word
+
+
+def _code(path):
+    """A C++ file without its comments and blank space."""
+    import re
+
+    with open(path) as f:
+        text = re.sub(r"//[^\n]*", "", f.read())
+    return "".join(text.split())
+
+
+def test_host_source_is_a_copy_of_the_jax_package_one():
+    """``csrc/event_ops.cpp`` is the JAX package's ``event_ops.cpp`` with
+    its comments reworded and its code unchanged, so the two libraries
+    built with the same flags compute the same bits."""
+    port = _code(os.path.join(PORT, "csrc", "event_ops.cpp"))
+    assert port == _code(os.path.join(ROOT, "native", "event_ops.cpp"))
+    with open(os.path.join(PORT, "native.py")) as f:
+        binding = f.read()
+    for entry in ("voxelize_trilinear", "voxelize_trilinear_mt",
+                  "voxelize_trilinear_windows", "voxelize_bilinear_t_windows",
+                  "voxelize_bilinear_t", "event_histogram",
+                  "time_indices_offsets", "chunk_events_phase_a",
+                  "chunk_events_phase_b", "normalize_nonzero_inplace"):
+        assert f'"{entry}"' in binding, entry
+
+
 FLAGSHIP = "configs/pretrain/DSEC/frame2voxel_fcclip_slic.yaml"
 # every shipped YAML
 CONFIGS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(
@@ -153,6 +195,8 @@ NEW_MODULES = [
     # the fourth slice: the grid wire and the datasets read from disk
     "data.dsec", "data.event_slicer", "data.png", "ops.voxelize",
     "ops.voxelize_mxu",
+    # the ninth slice: the host C++'s binding and the prefetching loader
+    "native", "data.pipeline",
 ]
 
 

@@ -42,6 +42,7 @@ import torch
 from openess_tpu.config.settings import Settings as JSettings
 from openess_tpu.data.synthetic import SyntheticESS as JSynthetic
 from openess_tpu_torch.config.settings import Settings
+from openess_tpu_torch.data.pipeline import batch_indices
 from openess_tpu_torch.data.synthetic import SyntheticESS
 from openess_tpu_torch.models.convert import (
     e2vid_state_dict_from_jax,
@@ -61,11 +62,7 @@ from openess_tpu_torch.training.optim import (
     set_learning_rates,
 )
 from openess_tpu_torch.training.steps import StepBuilder
-from openess_tpu_torch.training.trainer import (
-    Trainer,
-    batch_indices,
-    to_device,
-)
+from openess_tpu_torch.training.trainer import Trainer, to_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C, T = 64, 96, 6, 2

@@ -341,23 +341,39 @@ def test_event_half_of_ddd17_matches_the_jax_dataset(ddd17_tree,
         np.testing.assert_array_equal(got[k], ref[k])
 
 
-def test_unported_ddd17_paths_name_their_roadmap_item():
-    """The DDD17 dataset is read from disk and the grid wire is voxelized
-    on the device now (``tests/test_torch_datasets.py``); what still
-    raises, naming ROADMAP item 4, is the native host code: the histogram
-    and ``host_voxelize``."""
+def test_ddd17_host_paths_build_without_a_file():
+    """What raised before the port had its host C++ now builds: the
+    histogram and ``host_voxelize`` make ``event`` on the host from windows
+    made in memory, equal to the JAX dataset's ``_host_voxelize`` on the
+    same windows (the native grids, then the resize and the crop: within
+    5e-5 of the max, the resize's f32 source positions); the dataset still
+    names the recordings it lacks."""
+    from openess_tpu.data.ddd17 import DDD17Dataset as JDDD17
     from openess_tpu_torch.data import ddd17 as tddd
-
     from openess_tpu_torch.data.loaders import build_datasets
 
     _, ts = _ddd17_settings()
     with pytest.raises(FileNotFoundError, match="dir0"):
         build_datasets(ts, "cpu")
-    _, hist = _ddd17_settings(event_representation_b="histogram")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tddd.event_batch(hist, [], "cpu")
-    _, grid = _ddd17_settings(wire_format="grid")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tddd.event_batch(grid, [], "cpu")
+    rng = np.random.default_rng(5)
+    windows = []
+    for _ in range(2):
+        ev = np.stack([rng.integers(-2, WIDTH + 2, 900),
+                       rng.integers(-2, HEIGHT + 2, 900),
+                       np.sort(rng.integers(0, 10 ** 7, 900)),
+                       rng.integers(0, 2, 900)], axis=1)
+        windows.append(tddd.split_event_windows(ev, 2, 400))
+    for kw in (dict(event_representation_b="histogram"),
+               dict(wire_format="grid", normalize_event_b=True),
+               dict(wire_format="grid", separate_pol_b=True)):
+        js, ts = _ddd17_settings(**kw)
+        jds = JDDD17.__new__(JDDD17)
+        jds.s = js
+        ref = jds._host_voxelize(windows)
+        got = tddd.event_batch(ts, windows, "cpu")["event"]
+        assert isinstance(got, np.ndarray) and got.dtype == np.float32
+        assert got.shape == ref.shape and got.shape[-2:] == (200, 352)
+        assert np.abs(ref).max() > 0
+        assert np.abs(got - ref).max() <= 5e-5 * np.abs(ref).max()
     assert (tddd.HEIGHT, tddd.WIDTH, tddd.RESIZE_W, tddd.CROP_BOTTOM) == (
         260, 346, 352, 60)
