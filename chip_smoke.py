@@ -68,8 +68,22 @@ labels):
 - an f32 reference of the pretrain ``frame2recon`` step, CUDA against the
   CPU, at 64x96.
 
+Around the trainer (since the tenth slice): the fine-tune runs a second
+time with ``tpu.e2vid_s2d`` (E2VID's space-to-depth form) on the same
+batch and checkpoint, the head's and enc0's weight gradients are profiled
+alone in both forms, and an f32 step holds the s2d form to the standard
+one on the card; ``val_epoch`` with ``vis_dir`` writes the JAX trainer's
+five PNGs on a DSEC and a DDD17 raw-wire batch (K1 and K4 previews); two
+T8-pretrain steps run under ``utils/profiling.trace`` (``--profile``'s
+trace) and its file is read back; random weights written in the four
+released layouts go through ``python -m openess_tpu_torch.convert_checkpoints``
+and ``checkpoint.pretrained_file`` into CUDA model sets and one served
+window; and ``python -m openess_tpu_torch.bench`` runs once at full width
+in its own process, its JSON line printed on a line of its own.
+
 The settings are built in code from those YAMLs' values, since PyYAML may be
-absent where the card is.
+absent where the card is (the bench, run as its own process, reads the
+flagship YAML).
 
 Phases: device, build (one nvcc per source, started together; a kernel that
 spills registers fails the run), K1 vs plain (NW = 8, also launched into a
@@ -98,7 +112,11 @@ splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer
 DDD17 linear probe from disk (K6 and the host voxelizer, each at 1 and 4
 workers), T8-pretrain-recon, F8-finetune-recon,
 U8-uda-recon (each with its trace, spans and K2's time), the
-``frame2recon`` reference, and the summary. K1, K4, K5 and K6 are
+``frame2recon`` reference, the released checkpoints, the bench, and the
+summary (the tenth slice's phases sit beside the paths they extend: the
+trace after training, the s2d fine-tune, its weight gradients and the
+DSEC dumps after the fine-tune, the s2d reference after the fine-tune
+reference, the DDD17 dumps after the linear probe). K1, K4, K5 and K6 are
 the tile-owner splats of ``csrc/tile_splat.cuh``. The kernels'
 launch counters are zeroed before each main-path run and read after it. Any
 failure raises and the script exits non-zero. The last line is ``{"ok":
@@ -147,6 +165,22 @@ HOST_GRID_REL_TOL = 1e-5    # host-voxelized grid vs K5's / K6's, of max
 RECON_GRAD_L2_TOL = 6e-2    # f32 frame2recon step, CUDA vs CPU, each
                             # gradient tensor's relative L2 error
 RECON_GRAD_MEDIAN_TOL = 1e-2  # ... its median over the tensors
+S2D_REL_TOL = 1e-4          # f32 s2d form vs the standard form on the card,
+                            # of each tensor's max (latents, loss, E2VID's
+                            # gradients of a projection of its latents)
+S2D_RELU_GRAD_REL_TOL = 1e-1  # ... E2VID's gradients through its ReLUs
+BENCH_TIMEOUT_S = 600       # python -m openess_tpu_torch.bench at full width
+BENCH_KEYS = (              # keys its line must carry
+    "native_host_events_per_s", "pretrain_step_ms_b8", "device_samples_per_s",
+    "pretrain_step_ms_b8_teacher_os8", "eval_fwd_ms_b8",
+    "train_flops_per_step", "mfu_pct", "streaming_window_ms",
+    "streaming_window_ms_s4", "streaming_window_ms_s8",
+    "streaming_streams_at_20hz", "host_chunk_pack_ms_b8",
+    "host_grid_voxelize_ms_b8", "host_assembly_ms_b8", "host_threads",
+    "h2d_put_ms_b8", "pipeline_step_ms_b8_measured", "device_kind",
+    "power_limit_w")
+VIS_FILES = ("confusion", "confusion_norm", "semseg_pred_gt",
+             "event_preview", "pca_latent")  # the JAX trainer's dumps
 
 
 def flagship_settings(**overrides):
@@ -959,6 +993,7 @@ def train_phase(torch, dev, smi, settings, host_batch, zero_counts,
         torch, lambda: [sb.train_step(batch, 0) for _ in range(n)])
     print_profile(avg, wall, n, "step", smi)
     print_spans(avg, spans, n)
+    trace_phase(torch, sb, batch)
     return counts
 
 
@@ -1457,13 +1492,16 @@ def k4_phase(torch, k1, dev, flush, host_batch):
 
 
 def downstream_phase(torch, dev, smi, title, settings, host_batch, expect,
-                     trains, zero_counts, read_counts, loaded=None):
+                     trains, zero_counts, read_counts, loaded=None,
+                     stats=None):
     """A downstream stage at full width through ``Trainer``: a warm-up
     step, an epoch of ``DOWNSTREAM_STEPS`` steps on one batch through
     ``train_epoch`` (launch counts per step held to ``expect``), timed
     steps, and a profile. ``trains(key)`` says which state-dict entries must
     change; every other one must stay bit for bit. ``loaded`` maps entries
     to the values they must hold before the first step (a checkpoint's).
+    ``stats``, when given, receives the step's p50 and p95, the device's
+    busy ms per step and the cuDNN weight-gradient kernels' ms per step.
     Returns the epoch's launch counts."""
     from openess_tpu_torch.training.trainer import Trainer, to_device
 
@@ -1517,7 +1555,7 @@ def downstream_phase(torch, dev, smi, title, settings, host_batch, expect,
         half = {k: v[:B // 2] for k, v in host_batch.items()}
         return downstream_phase(torch, dev, smi, title, settings, half,
                                 expect, trains, zero_counts, read_counts,
-                                loaded)
+                                loaded, stats)
     torch.cuda.synchronize()
     print(f"step 0 (warm-up, {time.perf_counter() - t0:.2f} s): {first}")
 
@@ -1592,6 +1630,13 @@ def downstream_phase(torch, dev, smi, title, settings, host_batch, expect,
         torch, lambda: [sb.train_step(batch, 0) for _ in range(n)])
     print_profile(avg, wall, n, "step", smi)
     print_spans(avg, spans, n)
+    if stats is not None:
+        stats.update(
+            p50=float(np.percentile(ms, 50)), p95=float(np.percentile(ms, 95)),
+            busy=sum(e.self_device_time_total for e in avg) / 1e3 / n,
+            wgrad=sorted(((e.key, e.self_device_time_total / 1e3 / n,
+                           e.count // n) for e in avg if "wgrad" in e.key),
+                         key=lambda r: -r[1]))
     return counts
 
 
@@ -2771,6 +2816,427 @@ def recon_reference_phase(torch, dev):
                              "CPU one")
 
 
+def trace_phase(torch, sb, batch):
+    """``--profile``'s trace (``utils/profiling.trace``) of two T8-pretrain
+    steps: the file is written and holds K1's, K3's and K2's kernels; and
+    whether K1's kernel, launched through ``ctypes``, falls inside the
+    ``train/voxelize`` span (by its launch on the host, and on the
+    device's timeline)."""
+    from openess_tpu_torch.utils.profiling import trace
+
+    phase("--profile: two T8-pretrain steps under utils/profiling.trace")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        with trace(d):
+            for _ in range(2):
+                sb.train_step(batch, 0)
+            torch.cuda.synchronize()
+        files = [f for f in os.listdir(d) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"--profile wrote {os.listdir(d)}")
+        path = os.path.join(d, files[0])
+        size_mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    print(f"trace {files[0]}: {size_mb:.1f} MB, {len(events)} events, "
+          f"{time.perf_counter() - t0:.1f} s with the write")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = {"K1": "chunk_tile_splat", "K3": "lstm_gates_fwd",
+             "K2": "segment_sums"}
+    found = {k: sum(v in e.get("name", "") for e in kernels)
+             for k, v in names.items()}
+    print("kernels in the trace: " + ", ".join(
+        f"{k} ({names[k]}) x{n}" for k, n in found.items()))
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    cpu_spans = [e for e in events if e.get("name") == "train/voxelize"
+                 and e.get("cat") == "user_annotation"]
+    gpu_spans = [e for e in events if e.get("name") == "train/voxelize"
+                 and e.get("cat") == "gpu_user_annotation"]
+    k1 = [e for e in kernels if names["K1"] in e.get("name", "")]
+    on_host = on_device = 0
+    for e in k1:
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        on_host += launch is not None and any(
+            sp["ts"] <= launch["ts"] <= sp["ts"] + sp["dur"]
+            for sp in cpu_spans)
+        on_device += any(g["ts"] <= e["ts"] and e["ts"] + e["dur"]
+                         <= g["ts"] + g["dur"] for g in gpu_spans)
+    print(f"K1's {len(k1)} kernels: {on_host} launched inside a host "
+          f"train/voxelize span ({len(cpu_spans)} spans), {on_device} inside "
+          f"a device-side train/voxelize span ({len(gpu_spans)} spans)")
+    if not all(found.values()):
+        raise AssertionError(f"kernels missing from the trace: {found}")
+
+
+def s2d_wgrad_phase(torch, dev, smi):
+    """The weight gradients of E2VID's head and enc0, standard and s2d, at
+    the fine-tune step's shapes (B = 8, 440x640, bf16 channels-last, 20
+    windows a step), each alone under the profiler: which cuDNN kernels
+    run and their device ms per step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from openess_tpu_torch.models.e2vid import s2d_kernel
+
+    phase("E2VID head and enc0 weight gradients, standard and s2d (B = 8, "
+          "440x640, bf16; 20 windows a step)")
+    cl = torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for layer, cin, cout, stride in (("head", 5, 32, 1), ("enc0", 32, 64, 2)):
+        w5 = torch.randn((cout, cin, 5, 5), device=dev, generator=gen) * 0.1
+        for form in ("standard", "s2d"):
+            if form == "standard":
+                x = torch.randn((8, cin, 440, 640), device=dev,
+                                generator=gen)
+                w, pad = w5, 2
+            else:
+                x = torch.randn((8, 4 * cin, 220, 320), device=dev,
+                                generator=gen)
+                w, pad, stride = s2d_kernel(w5, layer == "head"), 1, 1
+            x = x.to(torch.bfloat16).contiguous(memory_format=cl)
+            w = w.to(torch.bfloat16).contiguous(memory_format=cl)
+            out = torch.nn.functional.conv2d(x, w, None, stride, pad)
+            go = torch.randn(out.shape, device=dev, generator=gen).to(
+                torch.bfloat16).contiguous(memory_format=cl)
+
+            def wgrad():
+                torch.ops.aten.convolution_backward(
+                    go, x, w, None, [stride] * 2, [pad] * 2, [1, 1], False,
+                    [0, 0], 1, [False, True, False])
+
+            for _ in range(3):
+                wgrad()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    wgrad()
+                torch.cuda.synchronize()
+            dev_rows = [e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0]
+            total = sum(e.self_device_time_total for e in dev_rows) / 1e3
+            rows[(layer, form)] = total
+            print(f"{layer} {form}: x {tuple(x.shape)} w {tuple(w.shape)}: "
+                  f"{total:.2f} ms for 20 weight gradients; kernels: "
+                  + "; ".join(f"{e.key[:100]} x{e.count // 20} "
+                              f"{e.self_device_time_total / 1e3:.2f} ms"
+                              for e in sorted(dev_rows, key=lambda e:
+                                              -e.self_device_time_total)))
+            del x, w, out, go
+    print("s2d against standard, ms per step (20 windows): " + ", ".join(
+        f"{layer} {rows[(layer, 'standard')]:.2f} -> "
+        f"{rows[(layer, 's2d')]:.2f}" for layer in ("head", "enc0"))
+          + f"; on {smi}")
+    return rows
+
+
+def s2d_reference_phase(torch, dev, height=440, width=640):
+    """E2VID's s2d form against its standard form, both on the card in f32
+    (TF32 off, K3's gates), at full width on a small batch (B = 2, T = 3)
+    fed the same voxel windows. Within ``S2D_REL_TOL`` of each tensor's
+    max: the latents and the fine-tune step's loss; and the head's and
+    enc0's convolutions alone on the step's first window (their outputs
+    and the gradients of a positive random projection of them to the 5x5
+    parameters, through ``s2d_kernel``'s gather on the card). E2VID's
+    gradients through the whole recurrence, of a projection of the
+    latents and of the step's loss, are bounded by
+    ``S2D_RELU_GRAD_REL_TOL``: a ReLU input that rounds to the other side
+    of zero in one form flips one pixel's term, and a gradient that is a
+    cancelling sum over ~1e6 pixels moves by ~1/sqrt(N) of its max for
+    each flip."""
+    import torch.nn.functional as F
+
+    from openess_tpu_torch.data.synthetic import SyntheticESS
+    from openess_tpu_torch.models.e2vid import (
+        normalize_event_window,
+        s2d_kernel,
+    )
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.optim import make_optimizer
+    from openess_tpu_torch.training.steps import StepBuilder
+    from openess_tpu_torch.training.trainer import to_device
+
+    phase(f"s2d reference: f32 fine-tune step with unfrozen_e2vid on the "
+          f"card, s2d against standard ({height}x{width}, B=2, T=3)")
+    ds = SyntheticESS(num_samples=2, height=height, width=width,
+                      num_classes=11, num_windows=3, events_per_window=100_000)
+    host = ds.raw_wire_batch([0, 1])
+    out, batch = {}, None
+    for s2d in (False, True):
+        s = finetune_settings(
+            dataset_name_b="synthetic_events", img_size_b=(height, width),
+            nr_events_data_b=3,
+            batch_size_b=2, compute_dtype="float32", e2vid_fused_gates=True,
+            load_pretrained_weights=False, data_augmentation_train=False,
+            e2vid_s2d=s2d)
+        mset = build_models(s, seed=0, device=dev)
+        e2vid = mset.modules["front_sensor_b"]
+        sb = StepBuilder(s, mset, make_optimizer(s, mset), 1)
+        sb._set_mode(True)
+        if batch is None:  # K1 once: both forms get the same windows
+            batch = sb._with_windows(to_device(host, dev))
+        total, losses = sb.compute_losses(batch, 0)
+        total.backward()
+        step = {k: p.grad.clone() for k, p in e2vid.named_parameters()}
+        e2vid.zero_grad()
+        _, latent = e2vid(batch["event"])
+        gen = torch.Generator(device=dev).manual_seed(3)
+        sum(torch.randn(v.shape, generator=gen, device=dev).mul(v).sum()
+            for _, v in sorted(latent.items())).backward()
+        probe = {k: p.grad.clone() for k, p in e2vid.named_parameters()}
+        out[s2d] = (float(losses["semseg_loss"].detach()),
+                    {k: v.detach() for k, v in latent.items()}, step, probe)
+        unet = e2vid.unetrecurrent
+        del mset, e2vid, sb, total, losses
+
+    # the two rewritten convolutions alone, on the first window
+    x = normalize_event_window(batch["event"][:, 0]).contiguous(
+        memory_format=torch.channels_last)
+    head, enc0 = unet.head.conv2d, unet.encoders[0].conv.conv2d
+    with torch.no_grad():
+        h = F.relu(head(x))
+    layers = {}
+    for name, conv, inp, s2d_out in (("head", head, x, True),
+                                     ("enc0", enc0, h, False)):
+        w = conv.weight.detach().clone().requires_grad_(True)
+        b = conv.bias.detach().clone().requires_grad_(True)
+        std = F.conv2d(inp, w, b, conv.stride, conv.padding)
+        y = F.conv2d(F.pixel_unshuffle(inp, 2), s2d_kernel(w, s2d_out),
+                     b.repeat_interleave(4) if s2d_out else b, padding=1)
+        alt = F.pixel_shuffle(y, 2) if s2d_out else y
+        # positive weights: a random-sign projection makes each bias
+        # gradient a cancelling sum over ~1e5 pixels, whose f32 rounding
+        # alone is ~eps * sqrt(N) of it
+        r = torch.rand(std.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(4)) + 0.5
+        grads = [torch.autograd.grad((r * o).sum(), (w, b))
+                 for o in (std, alt)]
+        layers[name] = (
+            {"out": std.detach(), "weight": grads[0][0], "bias": grads[0][1]},
+            {"out": alt.detach(), "weight": grads[1][0], "bias": grads[1][1]})
+
+    def rel(a, b):
+        return max((b[k] - a[k]).abs().max().item()
+                   / max(a[k].abs().max().item(), 1e-30) for k in a)
+
+    (la, lat_a, st_a, pr_a), (lb, lat_b, st_b, pr_b) = out[False], out[True]
+    errs = {"latents": rel(lat_a, lat_b), "loss": abs(lb - la) / abs(la)}
+    for name, (a, b) in layers.items():
+        errs[f"{name} alone: output and gradients"] = rel(a, b)
+    relu = {"E2VID gradients of a latent projection": rel(pr_a, pr_b),
+            "E2VID gradients of the step's loss": rel(st_a, st_b)}
+    ok = (all(v <= S2D_REL_TOL for v in errs.values())
+          and all(v <= S2D_RELU_GRAD_REL_TOL for v in relu.values()))
+    print("max rel |s2d-standard|: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {S2D_REL_TOL:.0e} of each tensor's max); "
+        + ", ".join(f"{k} {v:.3e}" for k, v in relu.items())
+        + f" (through the ReLUs; bound {S2D_RELU_GRAD_REL_TOL:.0e}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(
+            f"s2d disagrees with the standard form: {errs} {relu}")
+
+
+def dumps_phase(torch, dev, title, settings, host_batch, key, zero_counts,
+                read_counts):
+    """``Trainer.val_epoch`` with ``vis_dir`` on one batch: the five PNGs of
+    the JAX trainer exist and decode; the raw-wire batch is voxelized by
+    ``key`` (K1 or K4) once for the eval step, once for the viz step and
+    once for the event previews. Returns the launch counts."""
+    from PIL import Image
+
+    from openess_tpu_torch.training.trainer import Trainer
+
+    phase(title)
+    with tempfile.TemporaryDirectory() as d:
+        s = dataclasses.replace(settings, vis_dir=d, save_checkpoint=False,
+                                load_pretrained_weights=False)
+        data = OneBatchDataset(host_batch, 1)
+        trainer = Trainer(s, data, data, seed=0, device=dev)
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = trainer.val_epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        found = {}
+        for name in VIS_FILES:
+            path = os.path.join(d, f"{name}_e000.png")
+            if os.path.exists(path):
+                with Image.open(path) as im:
+                    found[name] = np.asarray(im).shape
+    print(f"val_epoch {wall:.2f} s with the dumps, mIoU "
+          f"{summary['miou']:.2f}; PNGs: " + ", ".join(
+              f"{k} {v}" for k, v in found.items()) + "; launches "
+          + " ".join(f"{k} {v}" for k, v in counts.items()))
+    checks = {
+        "five PNGs, each decodes": set(found) == set(VIS_FILES)
+        and all(len(v) == 3 for v in found.values()),
+        f"{key} 3 (eval, viz, previews)": counts[key] == 3,
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"{title}: checks failed: {checks}")
+    return counts
+
+
+def randomized(torch, sd, seed):
+    """Every float tensor of ``sd`` drawn anew (running variances
+    positive), the integer trackers kept."""
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in sd.items():
+        if v.is_floating_point():
+            r = torch.randn(v.shape, generator=g) * 0.05
+            out[k] = r.abs() + 0.5 if k.endswith("running_var") else r
+        else:
+            out[k] = v.clone()
+    return out
+
+
+def released_phase(torch, dev):
+    """Random weights written in the four released layouts
+    (``E2VID_lightweight.pth.tar``, an OpenESS ``Epoch_N.pt``, a DINO
+    ResNet-50 under ``module.``, the CLIP text ``.pth``), converted by
+    ``python -m openess_tpu_torch.convert_checkpoints``, loaded through
+    ``checkpoint.pretrained_file`` into CUDA model sets (the flagship
+    pretrain's and the ``frame2recon`` student's), every tensor equal to
+    the file's; one window served from the converted file."""
+    from openess_tpu_torch import convert_checkpoints
+    from openess_tpu_torch.models.deeplabv3 import DeepLabV3TextSeg
+    from openess_tpu_torch.models.e2vid import E2VIDReconstructor
+    from openess_tpu_torch.models.image_teacher import (
+        DilationFeatureExtractor,
+    )
+    from openess_tpu_torch.models.semseg_e2vid import SemSegE2VID
+    from openess_tpu_torch.serve_stream import StreamServer, serve
+    from openess_tpu_torch.serve_stream import synthetic_windows as windows
+    from openess_tpu_torch.training.build import build_models
+    from openess_tpu_torch.training.checkpoint import load_pretrained_params
+
+    phase("released checkpoints: four layouts -> convert_checkpoints -> "
+          "pretrained_file on the card -> one window served")
+    torch.manual_seed(0)
+    e2vid = randomized(torch, E2VIDReconstructor().state_dict(), 1)
+    r50 = randomized(torch, DilationFeatureExtractor().encoder.state_dict(),
+                     4)
+    r50 = {"module." + k: v for k, v in r50.items()}
+    r50["module.fc.weight"] = torch.randn(1000, 2048)
+    layouts = {
+        "E2VID_lightweight.pth.tar": {
+            "arch": "E2VIDRecurrent", "model": {"num_bins": 5},
+            "state_dict": e2vid},
+        "Epoch_29.pt": {
+            "front_sensor_b": e2vid,
+            "model_recon": randomized(
+                torch, DeepLabV3TextSeg(11).state_dict(), 2),
+            "back_end": randomized(
+                torch, SemSegE2VID(input_c=256, num_classes=11).state_dict(),
+                3),
+            "epoch": 29},
+        "dino_resnet50.pth": {"state_dict": r50},
+        "text.pth": torch.randn(11, 512),
+    }
+    with tempfile.TemporaryDirectory() as d:
+        paths = {k: os.path.join(d, k) for k in layouts}
+        for k, obj in layouts.items():
+            torch.save(obj, paths[k])
+        out = os.path.join(d, "converted.pt")
+        t0 = time.perf_counter()
+        convert_checkpoints.main([
+            "--openess_ckpt", paths["Epoch_29.pt"],
+            "--e2vid", paths["E2VID_lightweight.pth.tar"],
+            "--teacher_r50", paths["dino_resnet50.pth"],
+            "--text_pth", paths["text.pth"],
+            "--text_out", os.path.join(d, "text.npy"), "--out", out])
+        convert_s = time.perf_counter() - t0
+        held = torch.load(out, weights_only=True)["models"]
+        checks, loaded = {}, 0
+        for title, settings in (
+                ("pretrain frame2voxel", flagship_settings(
+                    e2vid_fused_gates=True, pretrained_file=out)),
+                ("frame2recon student", finetune_settings(
+                    config_option="frame2recon", pretrained_file=out))):
+            mset = build_models(settings, seed=5, device=dev)
+            taken = load_pretrained_params(settings.pretrained_file, mset,
+                                           exclude_substrings=(
+                                               "linear_probe",))
+            same = True
+            for name, module in mset.modules.items():
+                own = module.state_dict()
+                for k, v in held.get(name, {}).items():
+                    if k in own:
+                        same &= f"{name}.{k}" in taken and torch.equal(
+                            own[k].cpu(), v.to(own[k].dtype))
+            checks[f"{title}: every converted tensor loaded, equal"] = same
+            loaded += len(taken)
+            del mset
+        server = StreamServer(flagship_settings(e2vid_fused_gates=True), 1,
+                              dev, checkpoint=out)
+        r = serve(server, windows(2, 100_000, 480, 640))
+        torch.cuda.synchronize()
+        checks["served logits finite"] = bool(torch.isfinite(r.logits).all())
+        checks["labels in [0, 11)"] = int(r.labels.max()) < 11
+        checks["text .npy"] = np.array_equal(
+            np.load(os.path.join(d, "text.npy")),
+            layouts["text.pth"].numpy())
+    print(f"converted in {convert_s:.1f} s: modules {sorted(held)}; "
+          f"{loaded} tensors loaded through pretrained_file; served window "
+          f"p50 {np.percentile(r.latency_ms, 50):.1f} ms")
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"released checkpoints: checks failed: {checks}")
+
+
+def bench_phase(torch):
+    """``python -m openess_tpu_torch.bench`` once at full width, in its own
+    process; its JSON line is printed on a line of its own and its keys
+    and MFU checked."""
+    phase("bench: python -m openess_tpu_torch.bench (full width, own "
+          "process)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "openess_tpu_torch.bench"],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        print(r.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the bench exited with {r.returncode}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} JSON lines")
+    out = json.loads(lines[0])
+    print(f"bench ran {wall:.1f} s; its line:")
+    print(lines[0])
+    extra = out["extra"]
+    missing = [k for k in BENCH_KEYS if k not in extra]
+    checks = {
+        "metric and unit": out["metric"] == "voxelize_throughput"
+        and out["unit"] == "events/s",
+        "keys": not missing,
+        "value > 0, vs_baseline > 1": out["value"] > 0
+        and out["vs_baseline"] > 1,
+        "0 < mfu_pct <= 100": extra.get("mfu_pct") is not None
+        and 0 < extra["mfu_pct"] <= 100,
+        "device_kind is this card": extra.get("device_kind")
+        == torch.cuda.get_device_name(0),
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items())
+        + (f"; missing {missing}" if missing else ""))
+    if not all(checks.values()):
+        raise AssertionError(f"bench: checks failed: {checks}")
+    return out
+
+
 def main():
     import torch
 
@@ -3061,19 +3527,39 @@ def main():
         ft_batch = {k: v for k, v in host_batch.items()
                     if k.startswith("ev_")}
         ft_batch["label"] = host_batch["pl"]
-        launches["finetune"] = downstream_phase(
-            torch, dev, smi,
-            "fine-tune: DSEC, unfrozen_e2vid, at full width, bf16 "
-            "(Trainer, from the pretrain checkpoint)",
-            finetune_settings(e2vid_fused_gates=True,
-                              pretrained_file=ckpt_dir),
-            ft_batch, {"K1": 1, "K3": 60, "K3_bwd": 60, "K2": 0, "K4": 0,
-                       "K5": 0, "K6": 0},
-            lambda k: not k.endswith("text_embeddings"),
-            zero_counts, read_counts, loaded=loaded)
+        ft_stats = {False: {}, True: {}}
+        for s2d in (False, True):
+            launches["finetune" + ("_s2d" if s2d else "")] = \
+                downstream_phase(
+                    torch, dev, smi,
+                    "fine-tune: DSEC, unfrozen_e2vid, at full width, bf16 "
+                    "(Trainer, from the pretrain checkpoint)"
+                    + (", tpu.e2vid_s2d" if s2d else ""),
+                    finetune_settings(e2vid_fused_gates=True,
+                                      pretrained_file=ckpt_dir,
+                                      e2vid_s2d=s2d),
+                    ft_batch, {"K1": 1, "K3": 60, "K3_bwd": 60, "K2": 0,
+                               "K4": 0, "K5": 0, "K6": 0},
+                    lambda k: not k.endswith("text_embeddings"),
+                    zero_counts, read_counts, loaded=loaded,
+                    stats=ft_stats[s2d])
+        phase("F8-finetune-DSEC: standard against tpu.e2vid_s2d")
+        for s2d, st in ft_stats.items():
+            print(f"{'s2d' if s2d else 'standard'}: p50 {st['p50']:.1f} ms "
+                  f"p95 {st['p95']:.1f} ms, busy {st['busy']:.1f} ms per "
+                  f"step; weight-gradient kernels, ms per step: " + "; ".join(
+                      f"{k[:90]} x{c} {v:.2f}" for k, v, c in st["wgrad"]))
+        print(f"on {smi}")
+        s2d_wgrad_phase(torch, dev, smi)
+        launches["dumps_dsec"] = dumps_phase(
+            torch, dev, "visual dumps: val_epoch with vis_dir on the DSEC "
+            "raw-wire batch (K1 previews)",
+            finetune_settings(e2vid_fused_gates=True), ft_batch, "K1",
+            zero_counts, read_counts)
         del saved, loaded, ft_batch
     del host_batch
     finetune_reference_phase(torch, dev)
+    s2d_reference_phase(torch, dev)
 
     phase("pack one DDD17 batch (B=8, T=20, 32k events per window)")
     probe = ddd17_probe_settings(e2vid_fused_gates=True)
@@ -3089,6 +3575,10 @@ def main():
         {"K4": 1, "K3": 60, "K3_bwd": 0, "K1": 0, "K2": 0, "K5": 0,
          "K6": 0},
         lambda k: ".linear_probe." in k, zero_counts, read_counts)
+    launches["dumps_ddd17"] = dumps_phase(
+        torch, dev, "visual dumps: val_epoch with vis_dir on the DDD17 "
+        "raw-wire batch (K4 previews)", probe, ddd17_host, "K4",
+        zero_counts, read_counts)
     launches["serving_ddd17"] = ddd17_serving_phase(
         torch, dev, smi, zero_counts, read_counts, host)
 
@@ -3153,6 +3643,8 @@ def main():
          "cons_pred_loss", "total_loss"}, zero_counts, read_counts)
     del recon_host
     recon_reference_phase(torch, dev)
+    released_phase(torch, dev)
+    bench_phase(torch)
 
     phase("summary")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,10 +1,31 @@
-"""JAX (flax) parameter trees -> ``state_dict``s of the port's modules.
+"""Weights from elsewhere -> ``state_dict``s of the port's modules.
 
-The inverse of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``,
-``convert_semseg_e2vid``, ``convert_dilation_teacher`` and
-``convert_deeplab``: the trees are
-nested dicts of numpy arrays, the state-dict keys are the reference's.
-Layout rules:
+Two sources:
+
+- **JAX (flax) parameter trees** (``*_state_dict_from_jax``): the inverse
+  of ``openess_tpu/models/torch_convert.py`` ``convert_e2vid``,
+  ``convert_semseg_e2vid``, ``convert_dilation_teacher`` and
+  ``convert_deeplab``; the trees are nested dicts of numpy arrays.
+- **The released torch files** (``*_state_dict_from_released``,
+  :func:`openess_state_dicts_from_released`): ``E2VID_lightweight.pth.tar``,
+  the OpenESS ``Epoch_N.pt`` / ``ckp.pt`` checkpoints, a self-supervised
+  ResNet-50 (DINO, MoCo) and, through ``convert_checkpoints``, the CLIP
+  text embeddings ``.pth``. The port's modules keep the reference's
+  module names, so a released state dict needs no transposes and no
+  renames; what the conversion does is a prefix (``unetrecurrent.`` on
+  E2VID, ``encoder.`` on the teacher, ``module.`` off a DataParallel
+  save), a dtype (every tensor to f32 on the CPU) and a selection: the
+  keys the JAX converters read, and no others. So the trackers
+  ``num_batches_tracked``, a classifier ``fc.*`` or ``aux_classifier.*``
+  are dropped, and a key the file lacks (the teacher's ``decoder_conv``,
+  a head's ``text_embeddings``) is left out and keeps the build's value
+  under ``checkpoint.load_pretrained_params``. The text embeddings travel
+  inside ``back_end`` (``text_embeddings``) and ``model_recon`` /
+  ``model_frame`` (``classifier.text_embeddings``), where the released
+  files keep them. Nothing else differs from the JAX conversion, which a
+  test holds bit for bit.
+
+The state-dict keys are the reference's. Layout rules of the JAX trees:
 
 - conv            flax HWIO ``[kh, kw, I, O]`` -> torch OIHW ``[O, I, kh, kw]``
 - transposed conv ``ConvTranspose2dTorch`` ``[kh, kw, O, I]`` ->
@@ -164,3 +185,133 @@ def deeplab_state_dict_from_jax(params: dict, batch_stats: dict,
     if "linear_probe" in params:
         _conv(sd, "linear_probe", params["linear_probe"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the released torch files
+# ---------------------------------------------------------------------------
+
+_BN = (".weight", ".bias", ".running_mean", ".running_var")
+_RESNET50_BLOCKS = (3, 4, 6, 3)
+
+
+def _f32(v) -> torch.Tensor:
+    return v.detach().to("cpu", torch.float32).contiguous().clone()
+
+
+def _pick(sd: dict, names, prefix: str = "", out_prefix: str = "",
+          optional=()) -> dict:
+    """``{out_prefix + name: f32 copy of sd[prefix + name]}`` for each name;
+    a name in ``optional`` may be missing, any other raises KeyError."""
+    out = {}
+    for name in names:
+        key = prefix + name
+        if key in sd:
+            out[out_prefix + name] = _f32(sd[key])
+        elif name not in optional:
+            raise KeyError(f"released state dict lacks {key!r}")
+    return out
+
+
+def e2vid_state_dict_from_released(sd: dict) -> dict:
+    """The released ``E2VID_lightweight`` UNet (``state_dict`` of
+    ``E2VIDRecurrent``, keys under ``unetrecurrent.``, or bare) -> the
+    ``state_dict`` of :class:`E2VIDReconstructor` (keys under
+    ``unetrecurrent.``; the decode path's too, which a latent-only build
+    ignores): the keys ``convert_e2vid`` reads, 3 encoders and 2 residual
+    blocks, in f32."""
+    sd = {k.removeprefix("unetrecurrent."): v for k, v in sd.items()}
+    convs = (["head.conv2d"]
+             + [f"encoders.{i}.conv.conv2d" for i in range(3)]
+             + ["pred.conv2d"])
+    biased = ([f"encoders.{i}.recurrent_block.Gates" for i in range(3)]
+              + [f"resblocks.{i}.conv{c}" for i in range(2) for c in (1, 2)]
+              + [f"decoders.{i}.transposed_conv2d" for i in range(3)])
+    names = ([n + ".weight" for n in convs + biased]
+             + [n + ".bias" for n in convs + biased])
+    return _pick(sd, names, out_prefix="unetrecurrent.",
+                 optional=[n + ".bias" for n in convs])
+
+
+def _resnet50_names(sd: dict, prefix: str) -> list:
+    """The torchvision ResNet-50 keys ``convert_resnet50`` reads, a block's
+    downsample where ``sd`` has it."""
+    names = ["conv1.weight"] + ["bn1" + p for p in _BN]
+    for li, blocks in zip(range(1, 5), _RESNET50_BLOCKS):
+        for bi in range(blocks):
+            base = f"layer{li}.{bi}."
+            for ci in (1, 2, 3):
+                names += [base + f"conv{ci}.weight"]
+                names += [base + f"bn{ci}" + p for p in _BN]
+            if prefix + base + "downsample.0.weight" in sd:
+                names += [base + "downsample.0.weight"]
+                names += [base + "downsample.1" + p for p in _BN]
+    return names
+
+
+def teacher_state_dict_from_released(sd: dict) -> dict:
+    """A self-supervised ResNet-50 (torchvision keys; the checkpoint's
+    ``state_dict`` and a ``module.`` prefix already taken off by the
+    caller, as ``convert_checkpoints`` does) -> the ``encoder.*`` entries
+    of :class:`DilationFeatureExtractor`'s ``state_dict``. ``decoder_conv``
+    is not in the file and stays as built."""
+    return _pick(sd, _resnet50_names(sd, ""), out_prefix="encoder.")
+
+
+def deeplab_state_dict_from_released(sd: dict) -> dict:
+    """A released ``DeepLabV3TextSeg`` (``model_recon`` / ``model_frame``
+    of an OpenESS checkpoint: ``backbone.*``, ``classifier.ASPP.*``,
+    ``classifier.classifier.{0,1}``, ``classifier.text_embeddings``,
+    ``linear_probe.*`` when probing) -> the port's ``state_dict``, the keys
+    ``convert_deeplab`` reads."""
+    names = ["backbone." + n for n in _resnet50_names(sd, "backbone.")]
+    base = "classifier.ASPP."
+    for i in range(4):
+        names += [f"{base}convs.{i}.0.weight"]
+        names += [f"{base}convs.{i}.1" + p for p in _BN]
+    names += [base + "convs.4.1.weight"] + [base + "convs.4.2" + p
+                                            for p in _BN]
+    names += [base + "project.0.weight"] + [base + "project.1" + p
+                                            for p in _BN]
+    names += ["classifier.classifier.0.weight"]
+    names += ["classifier.classifier.1" + p for p in _BN]
+    names += ["classifier.text_embeddings", "linear_probe.weight",
+              "linear_probe.bias"]
+    return _pick(sd, names,
+                 optional=("linear_probe.weight", "linear_probe.bias"))
+
+
+def semseg_state_dict_from_released(sd: dict) -> dict:
+    """A released SemSegE2VID (``back_end``) -> the port's ``state_dict``,
+    the keys ``convert_semseg_e2vid`` reads; ``text_embeddings`` and
+    ``linear_probe.*`` where the file has them."""
+    convs = [f"decoder_scale_1.{i}.model.{j}" for i in range(5)
+             for j in (0, 3)]
+    convs += ["decoder_scale_1.5.model.0", "decoder_scale_2.0.model.0",
+              "decoder_scale_2.1.model.0", "decoder_scale_3.0.model.0",
+              "decoder_scale_3.1.model.0", "decoder_scale_4.0.model.0",
+              "decoder_ch256.0", "decoder_ch512.0", "linear_probe"]
+    names = [c + p for c in convs for p in (".weight", ".bias")]
+    return _pick(sd, names + ["text_embeddings"],
+                 optional=("linear_probe.weight", "linear_probe.bias",
+                           "text_embeddings"))
+
+
+def openess_state_dicts_from_released(ckpt: dict) -> dict:
+    """A released OpenESS checkpoint (``Epoch_N.pt`` / ``ckp.pt``: a dict of
+    per-model state dicts, utils/saver.py) -> ``{module name: state
+    dict}`` of the port's ``ModelSet``, for the modules it holds:
+    ``front_sensor_b`` (E2VID), ``model_recon`` and ``model_frame``
+    (DeepLabV3 students) and ``back_end`` (SemSegE2VID), as
+    ``convert_openess_checkpoint`` reads them. Other entries (an
+    optimizer, the epoch) are ignored."""
+    out = {}
+    if "front_sensor_b" in ckpt:
+        out["front_sensor_b"] = e2vid_state_dict_from_released(
+            ckpt["front_sensor_b"])
+    for name in ("model_recon", "model_frame"):
+        if name in ckpt:
+            out[name] = deeplab_state_dict_from_released(ckpt[name])
+    if "back_end" in ckpt:
+        out["back_end"] = semseg_state_dict_from_released(ckpt["back_end"])
+    return out

@@ -22,11 +22,24 @@ path's transposed convs, which never train here, want their stored dtype). A fro
 a no-op; a trainable one (the ``unfrozen_e2vid`` fine-tune) keeps f32
 parameters under a bf16 compute dtype, as the flax module does, and the
 loop over the T windows runs under autograd.
+
+Space-to-depth (``E2VIDReconstructor(s2d=True)``, ``tpu.e2vid_s2d``): the
+head and enc0 run on the 2x2 space-to-depth window (``F.pixel_unshuffle``,
+channel order ``c*4 + iy*2 + ix`` as the JAX package's ``space_to_depth``):
+the 5x5 head conv becomes an exact 3x3 conv from ``4*bins`` to ``4*32``
+channels at half the resolution, and enc0's strided 5x5 conv an exact 3x3
+conv from 128 to 64 channels. Their kernels are gathered from the
+unchanged 5x5 parameters on every call (:func:`s2d_kernel`), so the
+parameters, the state dict and checkpoints are the standard form's, and
+gradients flow back to the 5x5 parameters. Only the reconstructor takes
+it; the streaming step runs the standard form.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,8 +72,71 @@ class CastConv2d(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
+@functools.lru_cache(maxsize=None)
+def _s2d_index(ci: int, co: int, s2d_out: bool):
+    """Constant gather map of :func:`s2d_kernel`, the JAX package's: an
+    index into the flattened HWIO ``[5, 5, ci, co]`` kernel (-1 = the
+    appended zero slot) for every element of the rewritten HWIO
+    ``[3, 3, 4ci, (4|1)co]`` kernel."""
+    idx = np.full((3, 3, 4 * ci, (4 if s2d_out else 1) * co), -1, np.int32)
+    src = np.arange(5 * 5 * ci * co, dtype=np.int32).reshape(5, 5, ci, co)
+    for ky in range(5):
+        for kx in range(5):
+            for by in range(2 if s2d_out else 1):
+                for bx in range(2 if s2d_out else 1):
+                    vy = by + ky - 2 if s2d_out else ky - 2
+                    vx = bx + kx - 2 if s2d_out else kx - 2
+                    dy, iy = vy // 2 + 1, vy % 2
+                    dx, ix = vx // 2 + 1, vx % 2
+                    if s2d_out:
+                        idx[dy, dx, iy * 2 + ix :: 4, by * 2 + bx :: 4] = (
+                            src[ky, kx]
+                        )
+                    else:
+                        idx[dy, dx, iy * 2 + ix :: 4, :] = src[ky, kx]
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
+def _s2d_index_oihw(ci: int, co: int, s2d_out: bool, device: torch.device):
+    """:func:`_s2d_index` for torch's layouts, on ``device``: an index into
+    the flattened OIHW ``[co, ci, 5, 5]`` weight with the zero slot at its
+    end, laid out as the OIHW ``[(4|1)co, 4ci, 3, 3]`` rewritten weight.
+    One per shape and device (three shapes at most)."""
+    idx = _s2d_index(ci, co, s2d_out)
+    ky, rest = np.divmod(idx, 5 * ci * co)
+    kx, rest = np.divmod(rest, ci * co)
+    c, o = np.divmod(rest, co)
+    oihw = np.where(idx >= 0, ((o * ci + c) * 5 + ky) * 5 + kx, co * ci * 25)
+    return torch.from_numpy(
+        np.ascontiguousarray(oihw.transpose(3, 2, 0, 1)).astype(np.int64)
+    ).to(device)
+
+
+def s2d_kernel(weight: torch.Tensor, s2d_out: bool) -> torch.Tensor:
+    """Exact space-to-depth rewrite of a 5x5 conv weight ``[Co, Ci, 5, 5]``
+    (the JAX package's ``_s2d_kernel``). ``s2d_out=True``: the stride-1
+    conv with s2d input and output -> ``[4Co, 4Ci, 3, 3]`` (the head);
+    ``False``: the stride-2 conv on s2d input with standard output ->
+    ``[Co, 4Ci, 3, 3]`` (enc0, the stride absorbed by the s2d grid). An
+    original tap at offset v in -2..3 lands at s2d offset v // 2 with
+    sub-pixel v % 2, so the rewritten conv computes the same sum (its
+    extra taps are exact zeros). One gather, differentiable."""
+    co, ci, k, _ = weight.shape
+    if k != 5:
+        raise ValueError(f"s2d rewrites 5x5 convs, not {k}x{k}")
+    idx = _s2d_index_oihw(ci, co, s2d_out, weight.device)
+    flat = torch.cat([weight.reshape(-1), weight.new_zeros(1)])
+    return flat[idx]
+
+
 class ConvLayer(nn.Module):
-    """Conv + optional ReLU (submodules.py ConvLayer, norm=None)."""
+    """Conv + optional ReLU (submodules.py ConvLayer, norm=None).
+
+    ``s2d``: ``"none"``, the conv as built; ``"in_out"``, the 5x5 stride-1
+    conv on an s2d input giving an s2d output; ``"in"``, the 5x5 stride-2
+    conv on an s2d input giving a standard output. Both s2d forms are exact
+    rewrites over the same parameters (:func:`s2d_kernel`)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
                  relu=True):
@@ -68,8 +144,17 @@ class ConvLayer(nn.Module):
         self.conv2d = CastConv2d(in_ch, out_ch, kernel_size, stride, padding)
         self.relu = relu
 
-    def forward(self, x):
-        y = self.conv2d(x)
+    def forward(self, x, s2d: str = "none"):
+        if s2d == "none":
+            y = self.conv2d(x)
+        else:
+            s2d_out = s2d == "in_out"
+            conv = self.conv2d
+            weight = s2d_kernel(conv.weight, s2d_out).to(x.dtype)
+            bias = conv.bias.to(x.dtype)
+            if s2d_out:
+                bias = bias.repeat_interleave(4)
+            y = F.conv2d(x, weight, bias, padding=1)
         return F.relu(y) if self.relu else y
 
 
@@ -116,8 +201,8 @@ class RecurrentConvLayer(nn.Module):
         self.conv = ConvLayer(in_ch, out_ch, 5, 2, 2)
         self.recurrent_block = ConvLSTMCell(out_ch, out_ch, 3, fused_gates)
 
-    def forward(self, x, state):
-        return self.recurrent_block(self.conv(x), state)
+    def forward(self, x, state, s2d: str = "none"):
+        return self.recurrent_block(self.conv(x, s2d), state)
 
 
 class ResidualBlock(nn.Module):
@@ -152,7 +237,10 @@ class UNetRecurrent(nn.Module):
     ConvLSTM states. ``forward`` returns ``(img, states, latent)`` with
     ``latent = {"1": head, "2": enc0, "4": enc1, "8": enc2}``; with
     ``decode=False`` the resblocks, decoders and pred are not built and
-    ``img`` is None (the latent depends only on head and encoders)."""
+    ``img`` is None (the latent depends only on head and encoders).
+    ``s2d=True``: the window comes space-to-depth'd (``[B, 4*bins, H/2,
+    W/2]``), the head and enc0 run in that form, and ``latent["1"]`` is
+    returned in it (``[B, 4*32, H/2, W/2]``)."""
 
     def __init__(self, num_input_channels=5, num_output_channels=1,
                  num_encoders=3, base_num_channels=32, num_residual_blocks=2,
@@ -177,17 +265,19 @@ class UNetRecurrent(nn.Module):
             self.pred = ConvLayer(base, num_output_channels, 1, 1, 0,
                                   relu=False)
 
-    def forward(self, x, prev_states: Sequence):
-        x = self.head(x)
+    def forward(self, x, prev_states: Sequence, s2d: bool = False):
+        x = self.head(x, "in_out" if s2d else "none")
         head = x
         blocks, states = [], []
-        for enc, st in zip(self.encoders, prev_states):
-            x, st = enc(x, st)
+        for i, (enc, st) in enumerate(zip(self.encoders, prev_states)):
+            x, st = enc(x, st, "in" if s2d and i == 0 else "none")
             blocks.append(x)
             states.append(st)
         latent = {"1": head, "2": blocks[0], "4": blocks[1], "8": blocks[2]}
         if not self.decode:
             return None, states, latent
+        if s2d:
+            head = F.pixel_shuffle(head, 2)
         for rb in self.resblocks:
             x = rb(x)
         for dec, skip in zip(self.decoders, reversed(blocks)):
@@ -233,14 +323,19 @@ def initial_stream_state(batch: int, height: int, width: int, *,
     return tuple(states)
 
 
-def _step(unet, normalize, states, win):
+def _step(unet, normalize, states, win, s2d=False):
     """One recurrent window: NCHW window (any memory layout), NHWC states
-    -> (NHWC states, NHWC latent, NHWC img or None)."""
+    -> (NHWC states, NHWC latent, NHWC img or None). ``s2d``: the window
+    is space-to-depth'd first and ``latent["1"]`` stays in that form."""
+    if s2d:
+        win = F.pixel_unshuffle(win, 2)
     win = win.contiguous(memory_format=CL)
     if normalize:
+        # nonzero mean/std over the whole window: the s2d permutation
+        # leaves it exact
         win = normalize_event_window(win)
     prev = [(nchw(h), nchw(c)) for h, c in states]
-    img, new_states, latent = unet(win, prev)
+    img, new_states, latent = unet(win, prev, s2d)
     new_states = tuple((nhwc(h), nhwc(c)) for h, c in new_states)
     latent = {k: nhwc(v) for k, v in latent.items()}
     return new_states, latent, None if img is None else nhwc(img)
@@ -278,13 +373,18 @@ class E2VIDReconstructor(nn.Module):
 
     ``forward(windows)`` takes ``[B, T, H, W, bins]`` windows (or planar
     ``[B, T, bins, H, W]`` with ``planar_input``) and returns
-    ``(imgs [B, T, H, W, 1] or None, final_latent)``.
+    ``(imgs [B, T, H, W, 1] or None, final_latent)``. ``s2d`` runs the
+    head and enc0 in the space-to-depth form (module docstring) when H and
+    W are even, and the standard form otherwise, as the JAX package does;
+    the outputs and the parameters are the same either way.
     """
 
     def __init__(self, num_bins=5, normalize=True, base_num_channels=32,
-                 planar_input=False, latent_only=False, fused_gates=False):
+                 planar_input=False, latent_only=False, fused_gates=False,
+                 s2d=False):
         super().__init__()
         self.normalize = normalize
+        self.s2d = s2d
         self.planar_input = planar_input
         self.base_num_channels = base_num_channels
         self.unetrecurrent = UNetRecurrent(
@@ -308,15 +408,19 @@ class E2VIDReconstructor(nn.Module):
             base_num_channels=self.base_num_channels,
             dtype=windows.dtype, device=windows.device,
         )
+        s2d = self.s2d and h % 2 == 0 and w % 2 == 0
         imgs, latent = [], None
         for ti in range(t):
             win = windows[:, ti]
             if not self.planar_input:
                 win = nchw(win)
             states, latent, img = _step(
-                self.unetrecurrent, self.normalize, states, win
+                self.unetrecurrent, self.normalize, states, win, s2d
             )
             imgs.append(img)
+        if s2d:
+            latent = dict(latent, **{"1": nhwc(F.pixel_shuffle(
+                nchw(latent["1"]), 2))})
         if imgs[0] is None:
             return None, latent
         return torch.stack(imgs, dim=1), latent

@@ -1,7 +1,7 @@
 """Train entry point of the port (the counterpart of ``train.py``).
 
     python -m openess_tpu_torch.train --settings_file configs/<cfg>.yaml \\
-        [--no_log_dir] [--device cuda|cpu]
+        [--no_log_dir] [--device cuda|cpu] [--profile DIR]
 
 Dispatches to the workload encoded in the YAML's ``clip`` section
 (``if_supervised_only`` / ``if_pretraining`` / ...). Runs on the CUDA card
@@ -9,9 +9,12 @@ unless ``--device cpu`` is given. A synthetic dataset
 (``dataset.name_b: synthetic_events``) needs nothing on disk; DSEC and DDD17
 are read from ``dataset_path``, on the raw-event wire or, with
 ``tpu.wire_format: grid`` and ``tpu.host_voxelize: false``, voxelized on the
-device by the loader (K5, K6). Reading DSEC needs ``h5py``.
+device by the loader (K5, K6). Reading DSEC needs ``h5py``. ``--profile
+DIR`` traces the whole run with ``torch.profiler`` into DIR
+(``utils/profiling.trace``; the step's ``train/<part>`` spans are in it).
 """
 import argparse
+import contextlib
 import logging
 
 import numpy as np
@@ -21,6 +24,7 @@ from openess_tpu_torch.config.settings import load_settings
 from openess_tpu_torch.data.loaders import build_datasets
 from openess_tpu_torch.training.build import task_from_settings
 from openess_tpu_torch.training.trainer import Trainer
+from openess_tpu_torch.utils.profiling import trace
 
 
 def main(argv=None):
@@ -30,6 +34,10 @@ def main(argv=None):
     parser.add_argument("--no_log_dir", action="store_true")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a GPU) or cpu")
+    parser.add_argument(
+        "--profile", metavar="DIR", default="",
+        help="trace the run with torch.profiler into DIR (a "
+             "TensorBoard-loadable Chrome trace)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -40,12 +48,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     train_ds, val_ds = build_datasets(settings, device)
     trainer = Trainer(settings, train_ds, val_ds, device=device)
-    if task_from_settings(settings) == "pretrain":
-        trainer.pretraining()
-    else:
-        best = trainer.training()
-        if best:
-            print({k: v for k, v in best.items() if k in ("miou", "acc")})
+    ctx = trace(args.profile) if args.profile else contextlib.nullcontext()
+    with ctx:
+        if task_from_settings(settings) == "pretrain":
+            trainer.pretraining()
+        else:
+            best = trainer.training()
+            if best:
+                print({k: v for k, v in best.items()
+                       if k in ("miou", "acc")})
 
 
 if __name__ == "__main__":

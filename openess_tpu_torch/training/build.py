@@ -27,7 +27,9 @@ This is the one place where a module is made and initialised: the trainer
 and the streaming server both build from it. Weights are drawn from a seed
 with the flax initializers' distributions (truncated-normal LeCun for
 convs, variance-scaled uniform for the transposed convs, zero biases,
-identity BatchNorms); released checkpoints are not loaded yet.
+identity BatchNorms); released checkpoints reach a build through
+``python -m openess_tpu_torch.convert_checkpoints`` and
+``checkpoint.pretrained_file``.
 
 Parameter dtypes: a frozen E2VID is stored in the compute dtype; the rest
 (the head, the teacher, the DeepLabV3 students, E2VID under
@@ -163,17 +165,12 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
                  event_path_only: bool = False) -> ModelSet:
     """The modules of the configured workload on ``device`` (CUDA unless
     asked otherwise), seeded: every task on every ``config_option``, as the
-    JAX package builds them. ``tpu.e2vid_s2d`` raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
-    ``event_path_only`` builds ``front_sensor_b`` and ``back_end`` alone
+    JAX package builds them; ``tpu.e2vid_s2d`` gives the reconstructor its
+    space-to-depth form (same parameters). ``event_path_only`` builds ``front_sensor_b`` and ``back_end`` alone
     (a server needs nothing else; they come out as in the full build), and
     raises on ``frame2recon``, which has no event path."""
     task = task_from_settings(s)
     opt = s.config_option
-    if s.e2vid_s2d:
-        raise NotImplementedError(
-            "tpu.e2vid_s2d: E2VID's space-to-depth form is not ported yet: "
-            "ROADMAP Queue 1 item 10 (the tpu.e2vid_s2d knob)")
     if opt not in VOXEL_OPTIONS + ("frame2recon",):
         raise ValueError(f"unknown config_option {opt!r}")
     if event_path_only and opt not in VOXEL_OPTIONS:
@@ -194,6 +191,7 @@ def build_models(s: Settings, seed: int = 0, device=None, *,
         add("front_sensor_b", E2VIDReconstructor(
             num_bins=s.input_channels_b, normalize=True, planar_input=True,
             latent_only=True, fused_gates=s.e2vid_fused_gates,
+            s2d=s.e2vid_s2d,
         ), "e2vid", "voxel")
         add("back_end", SemSegE2VID(
             input_c=256, num_classes=s.semseg_num_classes,

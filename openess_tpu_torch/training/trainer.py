@@ -4,9 +4,10 @@ counterpart of ``openess_tpu/training/trainer.py``.
 One Trainer serves every ported workload; the differences live in
 ``StepBuilder.compute_losses``. Batches are assembled and uploaded by
 ``data/pipeline.PrefetchLoader`` on ``num_cpu_workers`` threads while the
-device runs the step before them; the qualitative dumps (ROADMAP Queue 1
-item 3) are not ported yet. A batch's grid-wire ``event`` made by K5 or
-K6 is already on the device and is not copied.
+device runs the step before them. A batch's grid-wire ``event`` made by K5
+or K6 is already on the device and is not copied. With ``vis_dir`` set
+(``load_settings`` with a log directory), each validation epoch writes the
+JAX trainer's five qualitative PNGs there (:meth:`Trainer._write_visuals`).
 """
 from __future__ import annotations
 
@@ -127,7 +128,10 @@ class Trainer:
         if self.val_data is None:
             return {}
         self.metrics.reset()
+        first_batch = None
         for batch in self._batches(self.val_data, False):
+            if first_batch is None:
+                first_batch = batch
             pred, _ = self.sb.eval_step(batch)
             label = batch["label"]
             if "valid" in batch:  # mask padded samples out of the confusion
@@ -139,7 +143,64 @@ class Trainer:
         summary = self.metrics.get_metrics_summary()
         log.info("epoch %d val: mIoU %.2f acc %.2f", self.epoch,
                  summary["miou"], summary["acc"])
+        if self.s.vis_dir and first_batch is not None:
+            try:
+                self._write_visuals(first_batch, summary)
+            except Exception:  # a failed dump must not end the run
+                log.exception("visualization failed")
         return summary
+
+    def _write_visuals(self, batch, summary) -> None:
+        """Per-validation-epoch dumps into ``vis_dir``, named as the JAX
+        trainer's: the raw and row-normalized confusion matrices, the
+        colorized predictions over the labels, the event previews and the
+        PCA map of the 256-d features, for the first (up to) 4 samples of
+        the epoch's first batch. A raw-wire batch's previews are voxelized
+        on the device (K1, or K4 for DDD17)."""
+        import os
+
+        from openess_tpu_torch.data.device_voxelize import voxelize_wire
+        from openess_tpu_torch.utils import viz
+
+        d, e = self.s.vis_dir, self.epoch
+        cm = np.asarray(summary["cm"])
+        viz.confusion_matrix_png(cm, os.path.join(d, f"confusion_e{e:03d}.png"))
+        viz.confusion_matrix_png(
+            cm, os.path.join(d, f"confusion_norm_e{e:03d}.png"),
+            normalize=True, class_names=self.s.semseg_class_names,
+        )
+        pred, feats = self.sb.viz_step(batch)
+        n = min(4, pred.shape[0])
+        pred = pred[:n].cpu().numpy()
+        feats = feats[:n].float().cpu().numpy()
+        labels = batch["label"][:n].cpu().numpy()
+        cmap, ignore = self.s.semseg_color_map, self.s.semseg_ignore_label
+        panels = np.stack(
+            [viz.colorize_semseg(pred[i], cmap, ignore) for i in range(n)]
+            + [viz.colorize_semseg(labels[i], cmap, ignore) for i in range(n)]
+        )
+        viz.save_png(os.path.join(d, f"semseg_pred_gt_e{e:03d}.png"),
+                     viz.image_grid(panels, nrow=n))
+        if "event" in batch or "ev_x" in batch:
+            if "event" in batch:
+                ev = batch["event"][:n]  # planar [n, T, C, H, W]
+            else:
+                ev = voxelize_wire(self.s, {k: v[:n] for k, v in batch.items()
+                                            if k.startswith("ev_")})
+            ev = ev.float().cpu().numpy()
+            if self.s.event_representation_b == "histogram":
+                # (neg, pos) counts; event_image's separate_pol wants
+                # (pos..., neg...): flip the channels
+                evs = [viz.event_image(ev[i].sum(0)[::-1], separate_pol=True)
+                       for i in range(n)]
+            else:
+                evs = [viz.event_image(ev[i].sum(0),
+                                       separate_pol=self.s.separate_pol_b)
+                       for i in range(n)]
+            viz.save_png(os.path.join(d, f"event_preview_e{e:03d}.png"),
+                         viz.image_grid(np.stack(evs), nrow=n))
+        viz.save_png(os.path.join(d, f"pca_latent_e{e:03d}.png"),
+                     viz.image_grid(viz.pca_rgb(feats), nrow=n))
 
     def _maybe_checkpoint(self):
         if self.s.save_checkpoint and self.s.ckpt_dir:

@@ -800,3 +800,55 @@ def test_recon_pretrain_step_on_the_card_matches_cpu(cuda):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def test_s2d_on_the_card_matches_cpu(cuda, monkeypatch):
+    """E2VID's space-to-depth form in f32 with K3's gates on the card
+    against the CPU's (plain gates), and against the standard form on the
+    card: each latent within 1e-4 of its max (TF32 off)."""
+    from openess_tpu_torch.models.e2vid import E2VIDReconstructor
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(0)
+    std = E2VIDReconstructor(planar_input=True, latent_only=True,
+                             fused_gates=True)
+    s2d = E2VIDReconstructor(planar_input=True, latent_only=True,
+                             fused_gates=True, s2d=True)
+    s2d.load_state_dict(std.state_dict())
+    x = torch.randn(2, 3, 5, 64, 96)
+    x[x.abs() < 0.3] = 0
+    with torch.no_grad():
+        _, cpu = s2d(x)
+        _, gpu = s2d.to(cuda)(x.to(cuda))
+        _, ref = std.to(cuda)(x.to(cuda))
+    for k in cpu:
+        scale = cpu[k].abs().max().item()
+        assert (gpu[k].cpu() - cpu[k]).abs().max().item() <= 1e-4 * scale, k
+        assert (gpu[k] - ref[k]).abs().max().item() <= 1e-4 * scale, k
+
+
+def test_val_epoch_dumps_on_the_card(cuda, tmp_path):
+    """``val_epoch`` with ``vis_dir`` on a raw-wire batch on the card writes
+    the five PNGs; the event previews launch K1 once."""
+    from openess_tpu_torch.config.settings import Settings
+    from openess_tpu_torch.data.synthetic import SyntheticESS
+    from openess_tpu_torch.training.trainer import Trainer
+
+    s = Settings(dataset_name_b="synthetic_events", img_size_b=(32, 48),
+                 semseg_num_classes=6, nr_events_data_b=2,
+                 config_option="frame2voxel", if_finetuning=True,
+                 if_pretraining=False, batch_size_b=2, vis_dir=str(tmp_path))
+    ds = SyntheticESS(num_samples=2, height=32, width=48, num_classes=6,
+                      num_windows=2, events_per_window=500)
+    ds.get_batch = lambda idx: ds.raw_wire_batch(list(idx))
+    trainer = Trainer(s, ds, ds, device=cuda)
+    before = k1.voxelize_chunked_trilinear.launches
+    trainer.val_epoch()
+    torch.cuda.synchronize()
+    # the eval step, the viz step and the previews
+    assert k1.voxelize_chunked_trilinear.launches == before + 3
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        f"{n}_e000.png" for n in ("confusion", "confusion_norm",
+                                  "semseg_pred_gt", "event_preview",
+                                  "pca_latent"))

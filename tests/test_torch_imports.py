@@ -75,6 +75,16 @@ def test_no_jax_or_jax_package_in_source(path):
     assert not names & set(FORBIDDEN), sorted(names & set(FORBIDDEN))
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_matplotlib_in_source(path):
+    """The confusion plots are drawn with PIL: matplotlib is not needed
+    where the port runs."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert "matplotlib" not in set(_imported_roots(tree))
+
+
 def _port_sources():
     csrc = sorted(glob.glob(os.path.join(PORT, "csrc", "*")))
     return _port_files() + csrc
@@ -197,6 +207,10 @@ NEW_MODULES = [
     "ops.voxelize_mxu",
     # the ninth slice: the host C++'s binding and the prefetching loader
     "native", "data.pipeline",
+    # the tenth slice: the bench, released checkpoints, profiling, FLOPs
+    # and the qualitative dumps
+    "bench", "convert_checkpoints", "utils.profiling", "utils.flops",
+    "utils.viz",
 ]
 
 

@@ -490,8 +490,8 @@ def test_unported_workloads_name_their_roadmap_item(kw, modules,
     student, the frame/recon workloads and UDA) build as the JAX package
     builds them, with the ``linear_probe`` conv under linear probing, and
     ``StepBuilder`` takes them; the fine-tune and the linear probe on a
-    voxel option build as before. (The settings that still wait for an
-    item, ``e2vid_s2d`` and the mesh, raise in the tests below.) The
+    voxel option build as before. (The setting that still waits for an
+    item, the mesh, raises in the tests below.) The
     structure is under test, so the weight draws are skipped."""
     from openess_tpu_torch.training import build
 
@@ -556,12 +556,6 @@ def test_trainer_refuses_more_data_shards_than_devices():
         Trainer(torch_settings(**SUP_ONLY, mesh_data=2), ds, device="cpu")
     for n in (-1, 1):
         refuse_unported_mesh(torch_settings(**SUP_ONLY, mesh_data=n), "cpu")
-
-
-def test_build_models_refuses_e2vid_s2d():
-    for kw in (SUP_ONLY, PRETRAIN):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            build_models(torch_settings(**kw, e2vid_s2d=True), device="cpu")
 
 
 @pytest.fixture(scope="module")
