@@ -81,6 +81,18 @@ and ``checkpoint.pretrained_file`` into CUDA model sets and one served
 window; and ``python -m openess_tpu_torch.bench`` runs once at full width
 in its own process, its JSON line printed on a line of its own.
 
+The serving export (since the eleventh slice): ``export_model``'s build
+functions export the flagship serving step at S = 1 and 8 and the batch step (B = 8,
+T = 20) on the card (the export's time, the artifact's size and its
+``lstm_gates_fwd`` nodes, K3's ``torch.library`` op), ``serve_stream``
+serves 20 windows through each streaming artifact beside the live server
+(labels equal window by window, logits within ``EXPORT_LOGIT_REL_TOL``,
+p50 and p95 side by side), the batch artifact runs against eager
+``StepBuilder.infer`` on one flagship grid batch, and an S = 1 DDD17
+artifact serves 10 windows beside the live DDD17 server (K4 on the
+artifact path); the host time a K3 call spends in its op is printed beside
+the op's CUDA implementation called directly.
+
 The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is (the bench, run as its own process, reads the
 flagship YAML).
@@ -96,7 +108,8 @@ a missing gradient), K2 vs plain, serving (S=1 with the plain gate path,
 S=1 with K3, S=8 with K3), a serving trace, an f32 reference check of the
 CUDA server against the CPU server, the host packer (C++ against numpy,
 flagship and DDD17 batches), packing one flagship batch, K1 vs plain
-at NW = 160, training, a training trace, an f32 reference check of the CUDA
+at NW = 160, the export (streaming S = 1 and 8, batch B = 8, T = 20),
+serving through the streaming artifacts, the batch artifact, training, a training trace, an f32 reference check of the CUDA
 train step against the CPU one, the fine-tune with its trace, an f32
 reference check of a small fine-tune step on CUDA against the CPU, packing
 one DDD17 batch, K4 vs plain (NW = 1 and 160, both polarity modes, each
@@ -104,7 +117,7 @@ also into a NaN-filled grid), K4's edge cases (shuffled chunks,
 misaligned descriptors and ones beyond the clamp, zero and oversized
 counts, times beyond t_range and negative, padding chunks, an empty
 window, a ragged frame, each into a NaN-filled grid), the DDD17 linear
-probe, DDD17 serving, K5 vs plain (NW = 160, its binning passes against
+probe, DDD17 serving, the DDD17 artifact served, K5 vs plain (NW = 160, its binning passes against
 theirs, its splat into a NaN-filled grid, edge cases), K6 vs plain
 (NW = 160, both polarity modes, its binning passes against theirs, its
 splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer
@@ -139,6 +152,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 K1_REL_TOL = 1e-5           # kernel vs plain, of max|plain|: atomics order
@@ -150,16 +164,16 @@ K2_REL_TOL = 1e-5           # K2 sums vs plain, of max|plain|: atomics order
 TRAIN_LOSS_REL_TOL = 1e-3   # f32 train step, CUDA vs CPU, each loss
 TRAIN_GRAD_REL_TOL = 1e-3   # ... gradients of the head's plain convs
 TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
-TRAIN_STEPS = 8             # train steps driven on the flagship batch
-DOWNSTREAM_STEPS = 6        # ... on the fine-tune and linear-probe batches
-RECON_DOWNSTREAM_STEPS = 5  # ... on the frame2recon fine-tune and UDA
+TRAIN_STEPS = 6             # train steps driven on the flagship batch
+DOWNSTREAM_STEPS = 4        # ... on the fine-tune and linear-probe batches
+RECON_DOWNSTREAM_STEPS = 3  # ... on the frame2recon fine-tune and UDA
 K3_BWD_F32_REL_TOL = 1e-5   # K3 backward in f32, of max|plain|: exp() differs
                             # in the last bits between kernel and PyTorch and
                             # 1 - tanh^2, 1 - g^2 cancel, so the error of a
                             # small gradient is set by its factors' size
 K4_REL_TOL = 1e-5           # K4 vs plain, of max|plain|: atomics order
 K56_REL_TOL = 1e-5          # K5, K6 vs plain, of max|plain|: atomics order
-GRID_STEPS = 6              # train steps through the DSEC grid-wire loader
+GRID_STEPS = 3              # train steps through the DSEC grid-wire loader
 GRID_WORKERS = (1, 4)       # num_cpu_workers of the grid cells' runs
 HOST_GRID_REL_TOL = 1e-5    # host-voxelized grid vs K5's / K6's, of max
 RECON_GRAD_L2_TOL = 6e-2    # f32 frame2recon step, CUDA vs CPU, each
@@ -169,6 +183,12 @@ S2D_REL_TOL = 1e-4          # f32 s2d form vs the standard form on the card,
                             # of each tensor's max (latents, loss, E2VID's
                             # gradients of a projection of its latents)
 S2D_RELU_GRAD_REL_TOL = 1e-1  # ... E2VID's gradients through its ReLUs
+S2D_F64_GRAD_REL_TOL = 1e-8  # ... the same gradients with E2VID in f64
+EXPORT_LOGIT_REL_TOL = 1e-3  # artifact vs the live module it was traced
+                            # from, bf16 on the card, of max|logits|: the
+                            # same kernels in the same order (measured 0)
+EXPORT_WINDOWS = 20         # windows served through each DSEC artifact
+EXPORT_DDD17_WINDOWS = 10   # ... through the DDD17 one
 BENCH_TIMEOUT_S = 600       # python -m openess_tpu_torch.bench at full width
 BENCH_KEYS = (              # keys its line must carry
     "native_host_events_per_s", "pretrain_step_ms_b8", "device_samples_per_s",
@@ -320,7 +340,8 @@ def bound(bytes_moved, ops, ops_per_s):
 
 
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def ptxas_kernels(lib_path):
@@ -2937,7 +2958,8 @@ def s2d_wgrad_phase(torch, dev, smi):
 def s2d_reference_phase(torch, dev, height=440, width=640):
     """E2VID's s2d form against its standard form, both on the card in f32
     (TF32 off, K3's gates), at full width on a small batch (B = 2, T = 3)
-    fed the same voxel windows. Within ``S2D_REL_TOL`` of each tensor's
+    fed the same voxel windows, then the gradients of the latent
+    projection again in f64 (within ``S2D_F64_GRAD_REL_TOL``). Within ``S2D_REL_TOL`` of each tensor's
     max: the latents and the fine-tune step's loss; and the head's and
     enc0's convolutions alone on the step's first window (their outputs
     and the gradients of a positive random projection of them to the 5x5
@@ -2991,7 +3013,7 @@ def s2d_reference_phase(torch, dev, height=440, width=640):
         out[s2d] = (float(losses["semseg_loss"].detach()),
                     {k: v.detach() for k, v in latent.items()}, step, probe)
         unet = e2vid.unetrecurrent
-        del mset, e2vid, sb, total, losses
+        del mset, sb, total, losses
 
     # the two rewritten convolutions alone, on the first window
     x = normalize_event_window(batch["event"][:, 0]).contiguous(
@@ -3040,6 +3062,40 @@ def s2d_reference_phase(torch, dev, height=440, width=640):
     if not ok:
         raise AssertionError(
             f"s2d disagrees with the standard form: {errs} {relu}")
+
+    # the latent projection's gradients again with E2VID in f64 on the same
+    # windows (plain gates: K3 takes bf16 and f32): a ReLU input lands on
+    # the other side of zero in one form only at an exact tie, so the forms
+    # agree to f64 rounding. The windows are normalized once, outside, for
+    # both forms: the normalization's statistics accumulate in f32, in each
+    # form's own order
+    e2vid = e2vid.double()
+    e2vid.normalize = False
+    for enc in e2vid.unetrecurrent.encoders:
+        enc.recurrent_block.fused_gates = False
+    x = batch["event"].double()
+    x = torch.stack([normalize_event_window(x[:, t])
+                     for t in range(x.shape[1])], dim=1)
+    grads = {}
+    for s2d in (False, True):
+        e2vid.s2d = s2d
+        e2vid.zero_grad()
+        _, latent = e2vid(x)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        sum(torch.randn(v.shape, generator=gen, device=dev,
+                        dtype=torch.float64).mul(v).sum()
+            for _, v in sorted(latent.items())).backward()
+        grads[s2d] = {k: p.grad.clone() for k, p in e2vid.named_parameters()}
+    err64 = rel(grads[False], grads[True])
+    ok = err64 <= S2D_F64_GRAD_REL_TOL
+    print(f"f64 (E2VID in float64, plain gates, the same windows): max rel "
+          f"|s2d-standard| E2VID gradients of a latent projection "
+          f"{err64:.3e} (bound {S2D_F64_GRAD_REL_TOL:.0e}; f32 above "
+          f"{relu['E2VID gradients of a latent projection']:.3e}) "
+          f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"s2d disagrees with the standard form in "
+                             f"f64: {err64}")
 
 
 def dumps_phase(torch, dev, title, settings, host_batch, key, zero_counts,
@@ -3237,6 +3293,168 @@ def bench_phase(torch):
     return out
 
 
+def export_artifact(torch, dev, s, out_dir, name, *, streaming):
+    """Export the flagship-width serving step (``streaming``) or batch
+    step of ``s`` on the card with seeded random weights (seed 0, the live
+    server's), write it under ``out_dir`` and report the export time, the
+    artifact's size and its ``lstm_gates_fwd`` nodes. Returns the
+    artifact's path, the live module it was traced from and the
+    numbers."""
+    from openess_tpu_torch import export_model as em
+    from openess_tpu_torch.training.build import build_models
+
+    mset = build_models(s, seed=0, device=dev, event_path_only=True)
+    t0 = time.perf_counter()
+    if streaming:
+        module, args = em.build_streaming_fn(s, mset)
+    else:
+        module, x = em.build_infer_fn(s, mset)
+        args = (x,)
+    ep = em.export(module, args)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(out_dir, f"{name}.pt2")
+    nodes = em.count_gate_nodes(ep)
+    size = em.save_artifact(ep, path, dict(
+        kind="streaming" if streaming else "batch", device=str(dev)))
+    t0 = time.perf_counter()
+    em.load_artifact(path, dev)
+    load_s = time.perf_counter() - t0
+    row = dict(name=f"export {name}", export_s=export_s, load_s=load_s,
+               mb=size / 1e6, lstm_gates_fwd_nodes=nodes,
+               inputs=[list(shape) + [str(dtype)] for shape, dtype
+                       in em.input_specs(ep)[-1:]])
+    print(f"{name}: exported in {export_s:.1f} s (torch.export on the card, "
+          f"host time), {size / 1e6:.1f} MB, loaded in {load_s:.2f} s, "
+          f"{nodes} lstm_gates_fwd nodes, window/event input "
+          f"{row['inputs'][0]}")
+    return path, module, row
+
+
+def export_serving_phase(torch, dev, smi, host, s, art_path, S, n,
+                         zero_counts, read_counts, voxel_key):
+    """``serve_stream --artifact`` against the live server (the same
+    seed-0 weights) on ``n`` synthetic windows at ``S`` streams: first
+    window by window from zero states on each window's one packed wire
+    (labels equal, logits within ``EXPORT_LOGIT_REL_TOL`` of the max),
+    then each through ``serve`` (p50 and p95, the artifact's launches:
+    the voxelizer ``voxel_key`` once and K3 three times a window)."""
+    from openess_tpu_torch.data.device_voxelize import upload_wire
+    from openess_tpu_torch.serve_stream import (
+        StreamServer,
+        serve,
+        synthetic_windows,
+    )
+
+    live = StreamServer(s, S, dev)
+    art = StreamServer(s, S, dev, artifact=art_path)
+    wins = list(synthetic_windows(n, s.nr_events_window_b, live.sensor_h,
+                                  live.sensor_w))
+    cl, ca = live.initial_state(), art.initial_state()
+    equal, gap, scale = 0, 0.0, 0.0
+    for win in wins:
+        wire = upload_wire(live.pack(*win), dev)
+        cl, ll, gl = live.step(cl, wire)
+        ca, la, ga = art.step(ca, wire)
+        equal += bool(torch.equal(la, ll))
+        gap = max(gap, (ga.float() - gl.float()).abs().max().item())
+        scale = max(scale, gl.float().abs().max().item())
+    zero_counts()
+    ra = serve(art, wins)
+    torch.cuda.synchronize()
+    got = read_counts()
+    rl = serve(live, wins)
+    torch.cuda.synchronize()
+    print(f"[artifact, S={S}] window by window against the live server: "
+          f"labels equal in {equal} of {n} windows, max|logits diff| "
+          f"{gap:.3e} of max {scale:.3f} (bound {EXPORT_LOGIT_REL_TOL:g} x "
+          f"max)")
+    serving_row(host, f"S{S} {s.dataset_name_b}, artifact", ra, smi)
+    print(f"[live, S={S}, the same windows]")
+    serving_row(host, f"S{S} {s.dataset_name_b}, live beside the artifact",
+                rl, smi)
+    print("  artifact launches " + " ".join(f"{k} {v}"
+                                             for k, v in got.items()))
+    others = [k for k in got if k not in (voxel_key, "K3")]
+    checks = {
+        "labels equal every window": equal == n,
+        "logits within the bound": gap <= EXPORT_LOGIT_REL_TOL * scale,
+        "labels uint8": ra.labels.dtype == np.uint8,
+        f"{voxel_key} once per window": got[voxel_key] == n,
+        "K3 three per window": got["K3"] == 3 * n,
+        "no other kernel": all(got[k] == 0 for k in others),
+    }
+    print("  checks: " + ", ".join(
+        f"{k} {'ok' if v else 'FAIL'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError(f"artifact serving checks failed: {checks}")
+    return got
+
+
+def export_batch_phase(torch, dev, settings, module, art_path, host_batch,
+                       flush, zero_counts, read_counts):
+    """The batch artifact (B = 8, T = 20) against ``StepBuilder.infer``,
+    the module it was traced from, on one flagship grid batch (the packed
+    batch voxelized by K1): labels equal, logits within
+    ``EXPORT_LOGIT_REL_TOL`` of the max; both timed by CUDA events."""
+    from openess_tpu_torch.data.device_voxelize import (
+        upload_wire,
+        voxelize_wire,
+    )
+    from openess_tpu_torch.export_model import load_artifact
+
+    phase("export: the batch artifact against eager StepBuilder.infer "
+          "(B=8, T=20, 440x640, bf16)")
+    with torch.no_grad():
+        event = voxelize_wire(settings, upload_wire(
+            {k: v for k, v in host_batch.items() if k.startswith("ev_")},
+            dev)).float()
+    run = load_artifact(art_path, dev)[0].module()
+    with torch.no_grad():
+        pl, ll = module(event)
+        zero_counts()
+        pa, la = run(event)
+        torch.cuda.synchronize()
+        got = read_counts()
+        gap = (la.float() - ll.float()).abs().max().item()
+        scale = ll.float().abs().max().item()
+        ms_a = cuda_ms(torch, lambda: run(event), flush, iters=5, warmup=1)
+        ms_e = cuda_ms(torch, lambda: module(event), flush, iters=5,
+                       warmup=1)
+    equal = bool(torch.equal(pa, pl))
+    print(f"labels equal {equal}; max|logits diff| {gap:.3e} of max "
+          f"{scale:.3f} (bound {EXPORT_LOGIT_REL_TOL:g} x max); artifact "
+          f"{ms_a:.2f} ms, eager {ms_e:.2f} ms a batch (CUDA events); "
+          f"launches " + " ".join(f"{k} {v}" for k, v in got.items()))
+    ok = (equal and gap <= EXPORT_LOGIT_REL_TOL * scale and got["K3"] == 60
+          and all(v == 0 for k, v in got.items() if k != "K3"))
+    if not ok:
+        raise AssertionError("the batch artifact disagrees with eager "
+                             f"inference: {equal} {gap} {got}")
+    return got, dict(name="export batch B8 T20 DSEC, run", artifact_ms=ms_a,
+                     eager_ms=ms_e)
+
+
+def k3_dispatch_us(torch, k3, gates, pc, n=300):
+    """Host microseconds a call of K3's forward through its op
+    (``fused_lstm_gates``: the check, the dispatcher, the op's CUDA
+    implementation) and of that implementation called directly, each over
+    ``n`` back-to-back calls after a warm-up: what the ``torch.library``
+    route adds to a launch."""
+    out = {}
+    for name, fn in (
+            ("op", lambda: k3.fused_lstm_gates(gates, pc)),
+            ("direct", lambda: k3._lstm_gates_fwd_cuda(gates, pc))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def main():
     import torch
 
@@ -3390,6 +3608,13 @@ def main():
             raise AssertionError(f"K3 disagrees with its plain version: {ulps}")
         k3_err = max(k3_err, err)
         sums += (ms_k, ms_p, ms_l, b_ms)
+    us = k3_dispatch_us(torch, k3, gates, pc)
+    extra_us = us["op"] - us["direct"]
+    print(f"K3 through its torch.library op: {us['op']:.1f} us of host "
+          f"time a call; its CUDA implementation called directly "
+          f"{us['direct']:.1f} us: the op route adds {extra_us:.1f} us a "
+          f"launch, {60 * extra_us / 1e3:.3f} ms over a train step's 60 "
+          f"({h}x{w}x{c}, B=1)")
     kernels["K3"] = dict(
         name="K3 fused_lstm_gates forward (3 ConvLSTMs per window)",
         route="cuda", source="openess_tpu_torch/csrc/lstm_gates.cu",
@@ -3399,6 +3624,7 @@ def main():
         check="ok: |kernel-plain| <= 1 bf16 ulp + 1e-6 at every shape a main "
               "path launches: 440x640 levels at B = 1 and 8, 200x352 levels "
               "at B = 1 and 8; ms is the B = 1 sum over the 440x640 levels",
+        op_dispatch_us=us["op"], direct_dispatch_us=us["direct"],
     )
     k3_b8, kernels["K3_bwd"] = k3_b8_phase(torch, k3, dev, flush)
     k3_b8["max_abs_err"] = max(k3_b8["max_abs_err"], k3_err)
@@ -3510,6 +3736,38 @@ def main():
     kernels["K1"].update(k1_nw160_phase(torch, k1, dev, flush, host_batch))
 
     launches = {"serving": serving_launches}
+    # the serving export: the streaming step at S = 1 and 8 and the batch
+    # step exported on the card, then served and run beside the live
+    # modules they were traced from
+    with tempfile.TemporaryDirectory() as art_dir:
+        phase("export: export_model's build functions on the card (440x640, "
+              "bf16, K3 gates, seeded random weights)")
+        exported = {}
+        for name, S, streaming, nodes in (("streaming_S1", 1, True, 3),
+                                          ("streaming_S8", 8, True, 3),
+                                          ("batch_B8_T20", 8, False, 60)):
+            es = flagship_settings(e2vid_fused_gates=True, batch_size_b=S)
+            path, module, row = export_artifact(
+                torch, dev, es, art_dir, name, streaming=streaming)
+            host_row(host, **row)
+            if row["lstm_gates_fwd_nodes"] != nodes:
+                raise AssertionError(f"{name}: {row} lstm_gates_fwd nodes, "
+                                     f"not {nodes}")
+            exported[name] = (es, path, module)
+        print(f"on {smi}")
+        for S in (1, 8):
+            phase(f"serving through the streaming artifact beside the live "
+                  f"server (S={S}, {EXPORT_WINDOWS} windows)")
+            es, path, _ = exported[f"streaming_S{S}"]
+            launches[f"export_serving_s{S}"] = export_serving_phase(
+                torch, dev, smi, host, es, path, S, EXPORT_WINDOWS,
+                zero_counts, read_counts, "K1")
+        es, path, module = exported["batch_B8_T20"]
+        launches["export_batch"], row = export_batch_phase(
+            torch, dev, es, module, path, host_batch, flush, zero_counts,
+            read_counts)
+        host_row(host, **row)
+        del exported, module
     with tempfile.TemporaryDirectory() as ckpt_dir:
         launches["train"] = train_phase(
             torch, dev, smi, settings, host_batch, zero_counts, read_counts,
@@ -3581,6 +3839,19 @@ def main():
         zero_counts, read_counts)
     launches["serving_ddd17"] = ddd17_serving_phase(
         torch, dev, smi, zero_counts, read_counts, host)
+    with tempfile.TemporaryDirectory() as art_dir:
+        phase("export: the DDD17 streaming artifact (S=1, 200x352, bf16) "
+              f"beside the live server ({EXPORT_DDD17_WINDOWS} windows)")
+        es = ddd17_probe_settings(e2vid_fused_gates=True, batch_size_b=1)
+        path, _, row = export_artifact(torch, dev, es, art_dir,
+                                          "streaming_S1_DDD17",
+                                          streaming=True)
+        host_row(host, **row)
+        if row["lstm_gates_fwd_nodes"] != 3:
+            raise AssertionError(f"DDD17 streaming artifact: {row}")
+        launches["export_serving_ddd17"] = export_serving_phase(
+            torch, dev, smi, host, es, path, 1, EXPORT_DDD17_WINDOWS,
+            zero_counts, read_counts, "K4")
 
     # the grid wire: K5 and K6 in the loaders, then the trainers on them
     windows = dsec_windows(flagship_settings())
@@ -3599,9 +3870,9 @@ def main():
         t0 = time.perf_counter()
         s = ddd17_probe_settings()
         need = s.nr_events_data_b * s.nr_events_window_b
-        write_ddd17_tree(root, np.random.default_rng(4), need=need, images=10)
+        write_ddd17_tree(root, np.random.default_rng(4), need=need, images=5)
         print(f"DDD17 tree written in {time.perf_counter() - t0:.1f} s (6 "
-              f"recordings of 10 masks, {need} events before the first)")
+              f"recordings of 5 masks, {need} events before the first)")
         for how in ("K6", "host_voxelize"):
             for workers in GRID_WORKERS:
                 launches[f"ddd17_grid_{how}_{workers}"] = ddd17_disk_phase(

@@ -26,6 +26,7 @@ move or a cast refolds; ``state_dict`` keeps the unfolded keys.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -89,7 +90,10 @@ class _FoldCache(nn.Module):
         version = (dtype,) + tuple(t._version for t in tensors)
         cached = self._folded.get(id(conv))
         if cached is None or cached[0] != version:
-            with torch.no_grad():
+            # the fold takes no gradient; entered only when one is being
+            # taken, so a traced eval step records no grad-mode switch
+            with torch.set_grad_enabled(False) if torch.is_grad_enabled() \
+                    else contextlib.nullcontext():
                 s = bn.weight.float() * torch.rsqrt(
                     bn.running_var.float() + _BN_EPS)
                 w = (conv.weight.float() * s[:, None, None, None]).to(dtype)

@@ -331,11 +331,9 @@ def chunk_events_windows_host(
         int(integer_coords), key_pos.reshape(-1), counts_full.reshape(-1),
         tfirst, t_range, xq.reshape(-1), yq.reshape(-1), pq.reshape(-1),
         tr.reshape(-1), int(t16), n_threads)
-    if reuse_buffers:
-        # the scratch flips with the wire, so these views live as long
-        counts = np.ascontiguousarray(counts_full[:, :nbc])
-        r0s = np.ascontiguousarray(r0_full[:, :nbc])
-        return xq, yq, pq, tr, counts, r0s, t_range.copy()
-    # owned copies: at nbc == nbc_cap the slice is the scratch itself
+    # counts and r0s are always copied: the scratch group flips on every
+    # call, the wire group only on reuse calls, so a view of the scratch
+    # would be rewritten under a batch still held (and at nbc == nbc_cap
+    # the slice is the scratch itself)
     return (xq, yq, pq, tr, counts_full[:, :nbc].copy(),
             r0_full[:, :nbc].copy(), t_range.copy())

@@ -22,9 +22,18 @@ in f32 with the forward's own formulas and gives::
     dc_prev = dc * f
 
 in the input dtype; a ``None`` ``dh`` or ``dc_next`` counts as zero. Both
-are HBM streams; the source's note says how the kernels meet that. The
-wrappers here choose each launch (:func:`launch_plan`), count it, and run
-the plain versions for CPU tensors only.
+are HBM streams; the source's note says how the kernels meet that.
+
+Both are ``torch.library`` custom ops, ``openess_tpu_torch::lstm_gates_fwd``
+and ``openess_tpu_torch::lstm_gates_bwd``, the backward registered as the
+forward's autograd formula (saving only the forward's two inputs). Each op
+has a CUDA implementation, which makes its inputs contiguous, chooses the
+launch (:func:`launch_plan`) and counts it, a CPU implementation, which is
+the plain version, and a fake implementation, so ``torch.export`` and other
+tracers see the op as one node of the graph whatever the device: an
+exported E2VID step launches the same kernels as the eager one. The
+wrappers :func:`fused_lstm_gates` and :func:`fused_lstm_gates_bwd` check
+shapes, dtypes and devices and call the ops.
 """
 from __future__ import annotations
 
@@ -139,15 +148,29 @@ def _check(gates, prev_cell, *grads):
             )
     if gates.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device for K3: {gates.device}")
-    if gates.device.type == "cuda":
-        if gates.dtype not in _DTYPE_CODES:
-            raise ValueError(
-                f"K3 kernels take float32 or bfloat16, not {gates.dtype}")
-        if not all(t.is_contiguous() for t in (gates, *given)):
-            raise ValueError("K3 inputs must be contiguous (NHWC)")
+    if gates.device.type == "cuda" and gates.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"K3 kernels take float32 or bfloat16, not {gates.dtype}")
 
 
-def _launch_fwd(gates, prev_cell):
+def dense(*tensors):
+    """Each tensor made contiguous (``None`` stays ``None``): the kernels
+    read NHWC rows, and autograd may hand over a strided gradient."""
+    return tuple(None if t is None else t.contiguous() for t in tensors)
+
+
+@torch.library.custom_op("openess_tpu_torch::lstm_gates_fwd", mutates_args=(),
+                         device_types="cpu")
+def lstm_gates_fwd(gates: torch.Tensor,
+                   prev_cell: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's forward as an op: ``(h, c)`` in the input dtype. On the CPU,
+    :func:`fused_lstm_gates_plain`."""
+    return fused_lstm_gates_plain(gates, prev_cell)
+
+
+@lstm_gates_fwd.register_kernel("cuda")
+def _lstm_gates_fwd_cuda(gates, prev_cell):
+    gates, prev_cell = dense(gates, prev_cell)
     h = torch.empty_like(prev_cell)
     c = torch.empty_like(prev_cell)
     _launch("lstm_gates_forward", prev_cell, gates, prev_cell, h, c)
@@ -155,19 +178,27 @@ def _launch_fwd(gates, prev_cell):
     return h, c
 
 
-def fused_lstm_gates_bwd(gates, prev_cell, dh, dc_next):
-    """``(dgates [..., 4C], dprev_cell [..., C])`` of :func:`fused_lstm_gates`
-    from its two inputs and the gradients of ``hidden`` and ``cell`` (all one
-    dtype; on CUDA all contiguous). Either gradient may be ``None``, read as
-    zero.
+@lstm_gates_fwd.register_fake
+def _lstm_gates_fwd_fake(gates, prev_cell):
+    out = torch.empty_like(prev_cell, memory_format=torch.contiguous_format)
+    return out, torch.empty_like(out)
 
-    A CUDA input launches the K3 backward kernel (bf16 or f32) and counts
-    the launch in ``fused_lstm_gates_bwd.launches``; a CPU input runs
-    :func:`fused_lstm_gates_bwd_plain`.
-    """
-    _check(gates, prev_cell, dh, dc_next)
-    if gates.device.type == "cpu":
-        return fused_lstm_gates_bwd_plain(gates, prev_cell, dh, dc_next)
+
+@torch.library.custom_op("openess_tpu_torch::lstm_gates_bwd", mutates_args=(),
+                         device_types="cpu")
+def lstm_gates_bwd(gates: torch.Tensor, prev_cell: torch.Tensor,
+                   dh: torch.Tensor | None,
+                   dc_next: torch.Tensor | None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's backward as an op: ``(dgates, dprev_cell)`` in the input dtype,
+    a ``None`` gradient read as zero. On the CPU,
+    :func:`fused_lstm_gates_bwd_plain`."""
+    return fused_lstm_gates_bwd_plain(gates, prev_cell, dh, dc_next)
+
+
+@lstm_gates_bwd.register_kernel("cuda")
+def _lstm_gates_bwd_cuda(gates, prev_cell, dh, dc_next):
+    gates, prev_cell, dh, dc_next = dense(gates, prev_cell, dh, dc_next)
     dgates = torch.empty_like(gates)
     dpc = torch.empty_like(prev_cell)
     _launch("lstm_gates_backward", prev_cell, gates, prev_cell, dh, dc_next,
@@ -176,43 +207,58 @@ def fused_lstm_gates_bwd(gates, prev_cell, dh, dc_next):
     return dgates, dpc
 
 
+@lstm_gates_bwd.register_fake
+def _lstm_gates_bwd_fake(gates, prev_cell, dh, dc_next):
+    return (torch.empty_like(gates, memory_format=torch.contiguous_format),
+            torch.empty_like(prev_cell, memory_format=torch.contiguous_format))
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+    # autograd then hands over None for an output nothing consumed (the
+    # last window's cell state), which the kernel reads as zero
+    ctx.set_materialize_grads(False)
+
+
+def gates_backward(ctx, dh, dc_next):
+    """The forward op's autograd formula: the backward op on the saved
+    inputs; the activations are recomputed there."""
+    gates, prev_cell = ctx.saved_tensors
+    return fused_lstm_gates_bwd(gates, prev_cell, dh, dc_next)
+
+
+lstm_gates_fwd.register_autograd(gates_backward, setup_context=_save_inputs)
+
+
+def fused_lstm_gates_bwd(gates, prev_cell, dh, dc_next):
+    """``(dgates [..., 4C], dprev_cell [..., C])`` of :func:`fused_lstm_gates`
+    from its two inputs and the gradients of ``hidden`` and ``cell`` (all one
+    dtype). Either gradient may be ``None``, read as zero.
+
+    A CUDA input launches the K3 backward kernel (bf16 or f32) through the
+    ``lstm_gates_bwd`` op and counts the launch in
+    ``fused_lstm_gates_bwd.launches``; a CPU input runs
+    :func:`fused_lstm_gates_bwd_plain` through the same op.
+    """
+    _check(gates, prev_cell, dh, dc_next)
+    return lstm_gates_bwd(gates, prev_cell, dh, dc_next)
+
+
 fused_lstm_gates_bwd.launches = 0
-
-
-class _FusedGates(torch.autograd.Function):
-    """K3 forward with K3 backward as its gradient, for CUDA tensors. Only
-    the two inputs are saved; the backward recomputes the activations."""
-
-    @staticmethod
-    def forward(ctx, gates, prev_cell):
-        ctx.save_for_backward(gates, prev_cell)
-        ctx.set_materialize_grads(False)
-        return _launch_fwd(gates, prev_cell)
-
-    @staticmethod
-    def backward(ctx, dh, dc_next):
-        gates, prev_cell = ctx.saved_tensors
-        # autograd hands over None for an output nothing consumed (the last
-        # window's cell state), which the kernel reads as zero, and may hand
-        # over a strided view, which is made dense here
-        return fused_lstm_gates_bwd(
-            gates, prev_cell,
-            *(None if g is None else g.contiguous() for g in (dh, dc_next)))
 
 
 def fused_lstm_gates(gates: torch.Tensor, prev_cell: torch.Tensor):
     """``(hidden, cell)`` from the gate conv output ``[B, H, W, 4C]`` and
     the previous cell ``[B, H, W, C]`` (same dtype). Differentiable in both.
 
-    A CUDA input (bf16 or f32, both tensors contiguous) launches the K3
-    forward kernel and counts the launch in ``fused_lstm_gates.launches``;
-    its gradient is :func:`fused_lstm_gates_bwd`. A CPU input runs
-    :func:`fused_lstm_gates_plain`, differentiable through autograd.
+    Every input goes through the ``lstm_gates_fwd`` op: a CUDA input (bf16
+    or f32) launches the K3 forward kernel and counts the launch in
+    ``fused_lstm_gates.launches``, a CPU input runs
+    :func:`fused_lstm_gates_plain`; the gradient is the ``lstm_gates_bwd``
+    op (:func:`fused_lstm_gates_bwd`) either way.
     """
     _check(gates, prev_cell)
-    if gates.device.type == "cpu":
-        return fused_lstm_gates_plain(gates, prev_cell)
-    return _FusedGates.apply(gates, prev_cell)
+    return lstm_gates_fwd(gates, prev_cell)
 
 
 fused_lstm_gates.launches = 0

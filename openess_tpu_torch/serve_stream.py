@@ -19,14 +19,17 @@ Usage:
   python -m openess_tpu_torch.serve_stream --settings_file configs/<cfg>.yaml \\
       [--events events.zip | --synthetic 40] [--window_events 100000] \\
       [--streams S] [--rate_hz 20] [--out_dir preds/] [--device cuda|cpu] \\
-      [--checkpoint <file or dir>]
+      [--checkpoint <file or dir> | --artifact model.pt2]
 
 Weights are random from a fixed seed unless ``--checkpoint`` names a
 checkpoint of the port's trainer (``training/checkpoint.py``), whose
 ``front_sensor_b`` and ``back_end`` are then loaded. The server runs the
 event path only: settings on ``frame2recon``, and a checkpoint of a
 ``frame2recon`` run (which holds DeepLabV3 students and no event path),
-are refused.
+are refused. ``--artifact`` serves an ``export_model --streaming``
+artifact in place of the live models, with the same packer, voxelizer and
+timing; it was exported on ``--device`` with a batch of ``--streams``, and
+it takes no ``--checkpoint``.
 """
 from __future__ import annotations
 
@@ -38,12 +41,19 @@ import time
 import numpy as np
 import torch
 
+from openess_tpu_torch import resolve_device
 from openess_tpu_torch.data.device_voxelize import (
     DSEC_HEIGHT,
     DSEC_WIDTH,
     pack_wire_batch,
     upload_wire,
     voxelize_wire,
+)
+from openess_tpu_torch.export_model import (
+    StreamingStep,
+    input_specs,
+    load_artifact,
+    read_meta,
 )
 from openess_tpu_torch.models.e2vid import initial_stream_state
 from openess_tpu_torch.native import chunk_events_windows_host
@@ -91,29 +101,29 @@ def sensor_shape(s, sensor_size: str = "") -> tuple[int, int]:
 
 
 class StreamServer:
-    """The serving models plus the per-window step, for ``streams``
-    concurrent streams batched into one call."""
+    """The serving step for ``streams`` concurrent streams batched into one
+    call: the live models (``export_model.StreamingStep`` over
+    ``serving_models``), or a streaming artifact of ``export_model``
+    (``artifact``), which carries its own weights and takes the grid the
+    server voxelizes (K1, K4) in eager mode."""
 
     def __init__(self, s, streams: int = 1, device=None, seed: int = 0,
-                 sensor_size: str = "", checkpoint: str = ""):
+                 sensor_size: str = "", checkpoint: str = "",
+                 artifact: str = ""):
         self.s = s
         self.streams = streams
-        mset = build_models(s, seed=seed, device=device, event_path_only=True)
-        if checkpoint:
-            from openess_tpu_torch.training.checkpoint import (
-                load_model_only,
-                read_model_state,
-            )
-
-            held = read_model_state(checkpoint)
-            if not {"front_sensor_b", "back_end"} <= set(held):
-                raise ValueError(
-                    f"checkpoint {checkpoint!r} holds {sorted(held)} and no "
-                    "event path (front_sensor_b, back_end): a frame2recon "
-                    "checkpoint cannot be served")
-            load_model_only(checkpoint, mset)
-        self.models = serving_models(mset)
-        self.device = self.models.device
+        self.models = None
+        if artifact:
+            if checkpoint:
+                raise ValueError("--artifact carries its weights: it takes no "
+                                 "--checkpoint")
+            self.device = resolve_device(device)
+            self.step_fn, self.dtype = _artifact_step(artifact, streams,
+                                                      self.device)
+        else:
+            self.models = _live_models(s, seed, device, checkpoint)
+            self.device, self.dtype = self.models.device, self.models.dtype
+            self.step_fn = StreamingStep(self.models)
         self.height, self.width = (int(v) for v in s.img_size_b)
         self.sensor_h, self.sensor_w = sensor_shape(s, sensor_size)
         # DDD17 events have integer pixels: packed exact, no corner spill
@@ -123,8 +133,8 @@ class StreamServer:
 
     def initial_state(self):
         return initial_stream_state(
-            self.streams, self.height, self.width,
-            dtype=self.models.dtype, device=self.device,
+            self.streams, self.height, self.width, dtype=self.dtype,
+            device=self.device,
         )
 
     def pack(self, x, y, p, t) -> dict:
@@ -151,11 +161,46 @@ class StreamServer:
     @torch.inference_mode()
     def step(self, carry, batch):
         """(carry, device wire) -> (carry, uint8 labels [S, H, W],
-        logits [S, H, W, num_classes])."""
+        logits [S, H, W, num_classes]). The grid goes to the step in f32,
+        the artifacts' input type (the step casts it back to the compute
+        dtype: exact)."""
         window = voxelize_wire(self.s, batch)[:, 0]  # [S, bins, H, W]
-        carry, latent, _ = self.models.e2vid(carry, window)
-        logits, _ = self.models.head(latent)
-        return carry, logits.argmax(dim=-1).to(torch.uint8), logits
+        carry, pred, logits = self.step_fn(carry, window.float())
+        return carry, pred.to(torch.uint8), logits
+
+
+def _live_models(s, seed, device, checkpoint):
+    mset = build_models(s, seed=seed, device=device, event_path_only=True)
+    if checkpoint:
+        from openess_tpu_torch.training.checkpoint import (
+            load_model_only,
+            read_model_state,
+        )
+
+        held = read_model_state(checkpoint)
+        if not {"front_sensor_b", "back_end"} <= set(held):
+            raise ValueError(
+                f"checkpoint {checkpoint!r} holds {sorted(held)} and no "
+                "event path (front_sensor_b, back_end): a frame2recon "
+                "checkpoint cannot be served")
+        load_model_only(checkpoint, mset)
+    return serving_models(mset)
+
+
+def _artifact_step(path, streams, device):
+    """The callable of a streaming artifact and its carry's dtype; refuses
+    a batch artifact, one exported on another device, and a window batch
+    other than ``streams`` (the carried state pins it)."""
+    kind = read_meta(path)["kind"]
+    if kind != "streaming":
+        raise ValueError(f"{path!r} is a {kind} artifact: serving needs "
+                         "export_model --streaming")
+    ep, _ = load_artifact(path, device)
+    specs = input_specs(ep)
+    batch = specs[-1][0][0]
+    if batch != streams:
+        raise ValueError(f"artifact batch {batch} != --streams {streams}")
+    return ep.module(), specs[0][1]
 
 
 @dataclasses.dataclass
@@ -185,17 +230,26 @@ def serve(server: StreamServer, windows, *, max_windows: int = 0,
     pending = None  # (labels on device, done event, index)
 
     def fetch(pend):
-        """Wait for a window's labels; write its PNG when asked."""
+        """Wait for a window's labels: with ``out_dir`` copy the first
+        stream's to the host, as ``(index, labels)`` for :func:`write`."""
         labels, done, idx = pend
         if out_dir:
-            from openess_tpu_torch.utils.viz import colorize_semseg, save_png
-
-            os.makedirs(out_dir, exist_ok=True)
-            rgb = colorize_semseg(labels[0].cpu().numpy(), s.semseg_color_map,
-                                  s.semseg_ignore_label)
-            save_png(os.path.join(out_dir, f"pred_{idx:06d}.png"), rgb)
-        elif done is not None:
+            return idx, labels[0].cpu().numpy()
+        if done is not None:
             done.synchronize()
+        return None
+
+    def write(fetched):
+        """The PNG of a fetched window, written outside the timed region."""
+        if fetched is None:
+            return
+        from openess_tpu_torch.utils.viz import colorize_semseg, save_png
+
+        idx, labels = fetched
+        os.makedirs(out_dir, exist_ok=True)
+        rgb = colorize_semseg(labels, s.semseg_color_map,
+                              s.semseg_ignore_label)
+        save_png(os.path.join(out_dir, f"pred_{idx:06d}.png"), rgb)
 
     n = 0
     logits = None
@@ -205,8 +259,7 @@ def serve(server: StreamServer, windows, *, max_windows: int = 0,
         t1 = time.perf_counter()
         dev = upload_wire(batch, server.device)
         t2 = time.perf_counter()
-        if pending is not None:
-            fetch(pending)
+        fetched = None if pending is None else fetch(pending)
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
@@ -218,6 +271,7 @@ def serve(server: StreamServer, windows, *, max_windows: int = 0,
         else:
             done = None
         t3 = time.perf_counter()
+        write(fetched)
         pending = (labels, done, n)
         if n > 0:
             lat.append((t3 - t0) * 1e3)
@@ -231,7 +285,7 @@ def serve(server: StreamServer, windows, *, max_windows: int = 0,
         if max_windows and n >= max_windows:
             break
     if pending is not None:  # drain the last in-flight window
-        fetch(pending)
+        write(fetch(pending))
     if not lat:
         raise SystemExit("need >= 2 windows to measure the serving rate")
     if cuda:
@@ -293,6 +347,10 @@ def main(argv=None):
     ap.add_argument("--checkpoint", default="",
                     help="trainer checkpoint (file, or a directory of "
                          "ckpt_*.pt) to load the models from")
+    ap.add_argument("--artifact", default="",
+                    help="serve an export_model --streaming .pt2 artifact "
+                         "instead of the live models (exported on --device, "
+                         "its batch equal to --streams)")
     args = ap.parse_args(argv)
 
     from openess_tpu_torch.config.settings import load_settings
@@ -300,7 +358,7 @@ def main(argv=None):
     s = load_settings(args.settings_file)
     server = StreamServer(s, streams=args.streams, device=args.device,
                           sensor_size=args.sensor_size,
-                          checkpoint=args.checkpoint)
+                          checkpoint=args.checkpoint, artifact=args.artifact)
     if args.events:
         windows = file_windows(args.events, args.window_events)
     else:

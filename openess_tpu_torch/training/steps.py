@@ -264,6 +264,17 @@ class StepBuilder:
             return self._event_path(batch)
         return self._deeplab("model_recon", batch["recon"], False)
 
+    def infer(self, x):
+        """``(pred [B, H, W] int32, logits [B, H, W, classes])`` in eval
+        mode, the counterpart of the bodies of JAX's ``build_infer_fn``
+        (``tools/export_model.py``) and what ``export_model`` traces: the
+        grid-wire ``event [B, T, C, H, W]`` through the event path on the
+        voxel options, ``recon [B, H, W, 3]`` through ``model_recon`` (its
+        folded trunk under ``student_fold_bn``) on ``frame2recon``."""
+        key = "event" if self.s.config_option in VOXEL_OPTIONS else "recon"
+        logits, _ = self._predict({key: x})
+        return logits.argmax(dim=-1).to(torch.int32), logits
+
     @torch.no_grad()
     def eval_step(self, batch):
         """``(pred [B, H, W] int64, task loss)``."""

@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from openess_tpu_torch import bench
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 KEYS = {
     "numpy_baseline_events_per_s", "native_host_events_per_s",

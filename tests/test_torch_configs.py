@@ -16,6 +16,9 @@ from openess_tpu_torch.training.build import (
 )
 from openess_tpu_torch.training.optim import make_optimizer
 from openess_tpu_torch.training.steps import StepBuilder
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, ROOT) for p in glob.glob(

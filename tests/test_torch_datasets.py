@@ -36,6 +36,9 @@ from openess_tpu_torch.data import ddd17 as tddd
 from openess_tpu_torch.data import dsec as tdsec
 from openess_tpu_torch.data.loaders import build_datasets
 from openess_tpu_torch.training.trainer import to_device
+from test_torch_native import cores_share, jax_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 GRID_TOL = 1e-5
 RESIZED_TOL = 5e-5
@@ -134,6 +137,7 @@ def test_dsec_host_event_batch_matches_jax(dsec_root, kw):
     from the same source: within 1e-6 of the max (measured 0)."""
     from openess_tpu.data.dsec import DSECDataset as JDSEC
 
+    jax_native()
     js, ts = dsec_settings(dsec_root, **kw)
     jds, tds = JDSEC(js, "train"), tdsec.DSECDataset(ts, "train", "cpu")
     jb, tb = jds.get_batch([0, 7]), tds.get_batch([0, 7])
@@ -198,6 +202,8 @@ def test_dsec_event_batch_is_driven_without_a_file(rng):
         event_histogram_windows_host,
         voxelize_trilinear_windows_host,
     )
+
+    jax_native()
 
     T, K = 3, 400
     windows = []
@@ -345,6 +351,7 @@ def test_ddd17_host_event_batch_matches_jax(ddd17_root, kw):
     )
     from openess_tpu_torch import native as tnative
 
+    jax_native()
     js, ts = ddd17_settings(ddd17_root, **kw)
     jds, tds = JDDD17(js, "train"), tddd.DDD17Dataset(ts, "train", "cpu")
     jb, tb = jds.get_batch([0, 4]), tds.get_batch([0, 4])

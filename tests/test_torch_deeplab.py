@@ -42,6 +42,9 @@ from openess_tpu.models.torch_convert import convert_deeplab
 from openess_tpu_torch.models.convert import deeplab_state_dict_from_jax
 from openess_tpu_torch.models.deeplabv3 import DeepLabV3TextSeg, dropout
 from openess_tpu_torch.models.resnet import batch_norm
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 B, H, W, C = 2, 64, 96, 6
 EVAL_REL = 1e-4

@@ -47,6 +47,9 @@ from openess_tpu_torch.training.build import build_models, trainable_labels
 from openess_tpu_torch.training.optim import make_optimizer
 from openess_tpu_torch.training.steps import StepBuilder
 from openess_tpu_torch.training.trainer import Trainer
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, C, T = 32, 64, 6, 3

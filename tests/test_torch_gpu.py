@@ -565,9 +565,19 @@ def test_prefetch_loader_on_the_card_matches_inline(cuda, wire):
 
 
 def test_k3_kernel_refuses_strided_input(cuda):
-    g = torch.zeros(1, 4, 4, 32, device=cuda).permute(0, 2, 1, 3)
-    with pytest.raises(ValueError, match="contiguous"):
-        k3.fused_lstm_gates(g, torch.zeros(1, 4, 4, 8, device=cuda))
+    """Strided input is no longer refused: the op makes its inputs
+    contiguous before the launch, so a strided view gives the contiguous
+    copy's result, in one launch. A dtype the kernels do not take is still
+    refused."""
+    g = torch.randn(1, 4, 4, 32, device=cuda).permute(0, 2, 1, 3)
+    pc = torch.randn(1, 4, 4, 8, device=cuda)
+    before = k3.fused_lstm_gates.launches
+    got = k3.fused_lstm_gates(g, pc)
+    assert k3.fused_lstm_gates.launches == before + 1
+    want = k3.fused_lstm_gates(g.contiguous(), pc)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        k3.fused_lstm_gates(g.half(), pc.half())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -852,3 +862,72 @@ def test_val_epoch_dumps_on_the_card(cuda, tmp_path):
         f"{n}_e000.png" for n in ("confusion", "confusion_norm",
                                   "semseg_pred_gt", "event_preview",
                                   "pca_latent"))
+
+
+def _export_settings(dtype, **kw):
+    from openess_tpu_torch.config.settings import Settings
+
+    return Settings(dataset_name_b="synthetic_events", img_size_b=(64, 96),
+                    semseg_num_classes=6, nr_events_data_b=2,
+                    compute_dtype=dtype, e2vid_fused_gates=True,
+                    config_option="frame2voxel", if_supervised_only=True,
+                    **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k3_op_counts_each_launch_of_a_streaming_artifact(cuda, dtype,
+                                                          tmp_path):
+    """A streaming step exported on the card, saved and loaded: each call
+    launches K3 three times (the op's CUDA implementation, counted as in
+    eager mode), and its labels equal the eager module's over 3 windows
+    with the carry fed back, its logits within 1e-5 (f32) or 1e-3 of the
+    max (bf16)."""
+    from openess_tpu_torch import export_model as em
+    from openess_tpu_torch.training.build import build_models
+
+    s = _export_settings(dtype, batch_size_b=2)
+    module, args = em.build_streaming_fn(
+        s, build_models(s, seed=0, device=cuda, event_path_only=True))
+    path = str(tmp_path / "s.pt2")
+    em.save_artifact(em.export(module, args), path,
+                     dict(kind="streaming", device=str(cuda)))
+    run = em.load_artifact(path, cuda)[0].module()
+    assert em.count_gate_nodes(em.load_artifact(path, cuda)[0]) == 3
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 0.5, (2, 5, 64, 96)).astype(np.float32)).to(cuda)
+    sl = sa = args[0]
+    with torch.no_grad():
+        for _ in range(3):
+            sl, pl, ll = module(sl, x)
+            before = k3.fused_lstm_gates.launches
+            sa, pa, la = run(sa, x)
+            torch.cuda.synchronize()
+            assert k3.fused_lstm_gates.launches == before + 3
+            assert torch.equal(pa, pl)
+            tol = 1e-5 if dtype == "float32" else 1e-3 * ll.abs().max()
+            assert (la.float() - ll.float()).abs().max() <= tol
+
+
+def test_batch_artifact_equals_eager_on_the_card(cuda, tmp_path):
+    """The batch step (T = 2) exported with a symbolic batch on the card:
+    3 T K3 launches a call, labels equal to ``StepBuilder.infer``'s at
+    B = 2 and 3, logits within 1e-5 (f32)."""
+    from openess_tpu_torch import export_model as em
+    from openess_tpu_torch.training.build import build_models
+
+    s = _export_settings("float32", batch_size_b=2)
+    module, x = em.build_infer_fn(
+        s, build_models(s, seed=0, device=cuda, event_path_only=True))
+    ep = em.export(module, (x,), poly_batch=True)
+    run = ep.module()
+    for b in (2, 3):
+        x = torch.from_numpy(np.random.default_rng(b).normal(
+            0, 0.5, (b, 2, 5, 64, 96)).astype(np.float32)).to(cuda)
+        with torch.no_grad():
+            pl, ll = module(x)
+            before = k3.fused_lstm_gates.launches
+            pa, la = run(x)
+            torch.cuda.synchronize()
+        assert k3.fused_lstm_gates.launches == before + 6
+        assert torch.equal(pa, pl)
+        assert (la - ll).abs().max() <= 1e-5

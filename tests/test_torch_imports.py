@@ -10,6 +10,10 @@ import sys
 
 import pytest
 
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "openess_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "openess_tpu")
@@ -211,6 +215,8 @@ NEW_MODULES = [
     # and the qualitative dumps
     "bench", "convert_checkpoints", "utils.profiling", "utils.flops",
     "utils.viz",
+    # the eleventh slice: the serving export
+    "export_model",
 ]
 
 

@@ -20,6 +20,9 @@ from openess_tpu.ops import confusion as jconf
 from openess_tpu_torch import losses as tl
 from openess_tpu_torch.metrics import MetricsSemseg
 from openess_tpu_torch.ops import confusion as tconf
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 C = 6
 REL = 1e-5

@@ -29,6 +29,9 @@ import torch
 from openess_tpu.ops import lstm_gates as jlstm
 from openess_tpu.ops.lstm_gates import fused_lstm_gates as jfused
 from openess_tpu_torch.ops import lstm_gates as k3
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 F32_TOL = 1e-6
 SHAPES = [(2, 5, 7, 8), (1, 1, 1, 12), (1, 3, 4, 20), (2, 2, 3, 64)]
@@ -110,10 +113,13 @@ def test_autograd_through_the_plain_forward_matches_both_jax_paths(shape):
 
 def test_function_backward_passes_none_and_densifies_strided_gradients(
         monkeypatch):
-    """The ``autograd.Function`` of the CUDA path: a ``None`` gradient (the
-    last window's cell state has no consumer) reaches the backward wrapper
-    as ``None``, which reads it as zero, and a strided one is made dense
-    first; on CPU tensors the wrapper is the plain backward."""
+    """The forward op's registered autograd formula: a ``None`` gradient
+    (the last window's cell state has no consumer) reaches the backward
+    wrapper as ``None``, which reads it as zero, and a strided one reaches
+    it as it is, for the op to make dense (``dense``, which the CUDA
+    implementations apply before a launch); on CPU tensors the op is the
+    plain backward. Through autograd itself, the unconsumed cell's gradient
+    is not materialized either."""
     gates, pc, dh, _ = (torch.from_numpy(a) for a in _inputs((2, 3, 4, 8)))
     ctx = types.SimpleNamespace(saved_tensors=(gates, pc))
     seen = []
@@ -126,14 +132,20 @@ def test_function_backward_passes_none_and_densifies_strided_gradients(
     monkeypatch.setattr(k3, "fused_lstm_gates_bwd", spy)
     strided = dh.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     assert not strided.is_contiguous()
-    got = k3._FusedGates.backward(ctx, strided, None)
-    assert seen[-1][1] is None and seen[-1][0].is_contiguous()
+    got = k3.gates_backward(ctx, strided, None)
+    assert seen[-1][1] is None and seen[-1][0] is strided
+    assert all(t.is_contiguous() for t in k3.dense(strided, None)[:1])
+    assert k3.dense(strided, None)[1] is None
     want = k3.fused_lstm_gates_bwd_plain(gates, pc, dh, torch.zeros_like(pc))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    got = k3._FusedGates.backward(ctx, None, dh)
+    got = k3.gates_backward(ctx, None, dh)
     assert seen[-1][0] is None and seen[-1][1] is dh
     want = k3.fused_lstm_gates_bwd_plain(gates, pc, torch.zeros_like(pc), dh)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    g, p = gates.clone().requires_grad_(), pc.clone().requires_grad_()
+    h, _ = k3.fused_lstm_gates(g, p)
+    (h * dh).sum().backward()
+    assert seen[-1][0] is not None and seen[-1][1] is None
 
 
 @pytest.mark.parametrize("missing", ["dh", "dc_next"])

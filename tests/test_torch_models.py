@@ -25,6 +25,9 @@ from openess_tpu_torch.ops.lstm_gates import (
     fused_lstm_gates,
     fused_lstm_gates_plain,
 )
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 MODEL_TOL = 1e-4  # f32 convs: XLA CPU vs PyTorch CPU summation order
 GATE_TOL = 1e-6   # the same f32 pointwise math

@@ -14,8 +14,24 @@ against the port's own plain versions, at small sizes.
   times normalized with another rounding).
 - The build: a missing compiler raises, with no numpy fallback; a library
   is named by its source.
+
+Two helpers here serve every port test module, which imports them:
+
+- :func:`jax_native`: every comparison with the JAX package's native library
+  goes through it. Under pytest-xdist each worker's import of
+  ``openess_tpu.native`` runs ``make`` on the same gitignored
+  ``libevent_ops.so``, and a worker that loads it while another is still
+  linking it keeps the numpy fallbacks for its whole life.
+- the ``cores_share`` fixture (``pytestmark`` of each module): torch's
+  intra-op threads, and the ``OMP_NUM_THREADS`` of the subprocesses a test
+  starts, are this worker's share of the cores while the module runs. Six
+  workers that each spin 8 OpenMP threads on 8 cores slow a small conv
+  loop about 57-fold (10 E2VID steps at 64x96: 86.4 s against 1.5 s with 2
+  threads, five busy neighbours); one process alone keeps every core.
 """
 import functools
+import os
+import time
 
 import numpy as np
 import pytest
@@ -32,6 +48,7 @@ from openess_tpu_torch.ops.voxelize_chunked import (
 )
 
 NATIVE_TOL = 1e-6
+NATIVE_WAIT_S = 120
 SCATTER_TOL = 1e-5
 WIRE_NAMES = ("xq", "yq", "pq", "t_rel", "counts", "tile_r0", "t_range")
 NW, K, H, W, CHUNK = 3, 5000, 72, 130, 256
@@ -40,6 +57,51 @@ NW, K, H, W, CHUNK = 3, 5000, 72, 130, 256
 def _rel(a, b):
     return float(np.abs(np.asarray(a) - np.asarray(b)).max()
                  / np.abs(np.asarray(b)).max())
+
+
+def jax_native():
+    """``openess_tpu.native`` with its C++ library loaded in this process.
+
+    When this worker's import lost the build race (another worker was still
+    linking the library, so the load failed and the module fell back to
+    numpy), the load is tried again, with ``make`` and all, until the
+    other worker's build has finished; then it must hold. So a test that
+    names the JAX package's C++ compares with it, never with the numpy
+    fallback, whose rounding differs from the ``-ffast-math`` build."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while jnative._try_load() is None and time.monotonic() < deadline:
+        time.sleep(0.5)
+        jnative._load_attempted = False
+    assert jnative._lib is not None, (
+        "the JAX package's native library (native/libevent_ops.so) did not "
+        "load")
+    return jnative
+
+
+@pytest.fixture(scope="module")
+def cores_share():
+    """Torch's intra-op threads, and ``OMP_NUM_THREADS`` for subprocesses,
+    at this xdist worker's share of the cores (rounded up) while the module
+    runs; restored after it. Outside xdist the share is every core."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    share = max(1, -(-(os.cpu_count() or 1) // workers))
+    threads, omp = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
+    torch.set_num_threads(min(threads, share))
+    os.environ["OMP_NUM_THREADS"] = str(torch.get_num_threads())
+    yield
+    torch.set_num_threads(threads)
+    if omp is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = omp
+
+
+pytestmark = pytest.mark.usefixtures("cores_share")
+
+
+@pytest.fixture(autouse=True)
+def _jax_native_loaded():
+    jax_native()
 
 
 @functools.cache
@@ -132,6 +194,25 @@ def test_packer_fresh_buffers_never_alias_scratch(trim):
     tnative.chunk_events_windows_host(*_small_events(rng)[0], **kw)
     tnative.chunk_events_windows_host(*_small_events(rng)[0], **kw)
     for name, live, ref in zip(WIRE_NAMES, kept, snap):
+        np.testing.assert_array_equal(live, ref, err_msg=name)
+
+
+@pytest.mark.parametrize("trim", [False, True])
+def test_packer_mixed_reuse_modes_keep_a_reused_batch(trim):
+    """One thread mixes ``reuse_buffers=True`` and ``False``: the scratch
+    group turns on every call, the wire group only on reuse calls, so after
+    a reuse call, a fresh one and another reuse call the first batch's wire
+    is still its own, and its ``counts`` and ``tile_r0`` must be too."""
+    rng = np.random.default_rng(6)
+    a0, kw = _small_events(rng)
+    kw["trim"] = trim
+    first = tnative.chunk_events_windows_host(*a0, reuse_buffers=True, **kw)
+    snap = [np.array(a, copy=True) for a in first]
+    tnative.chunk_events_windows_host(*_small_events(rng)[0],
+                                      reuse_buffers=False, **kw)
+    tnative.chunk_events_windows_host(*_small_events(rng)[0],
+                                      reuse_buffers=True, **kw)
+    for name, live, ref in zip(WIRE_NAMES, first, snap):
         np.testing.assert_array_equal(live, ref, err_msg=name)
 
 

@@ -11,6 +11,9 @@ from openess_tpu_torch.config.settings import Settings
 from openess_tpu_torch.data.pipeline import PrefetchLoader, batch_indices
 from openess_tpu_torch.data.synthetic import SyntheticESS
 from openess_tpu_torch.training.trainer import Trainer, to_device
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 
 class ToyDataset:

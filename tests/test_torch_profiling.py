@@ -35,6 +35,9 @@ from openess_tpu_torch.utils.profiling import (
     timer_summary,
     trace,
 )
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -63,6 +63,9 @@ from openess_tpu_torch.training.build import build_models, trainable_labels
 from openess_tpu_torch.training.optim import make_optimizer
 from openess_tpu_torch.training.steps import StepBuilder
 from test_torch_deeplab import _NoDropout
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 H, W, C, T = 64, 96, 6, 3
 SHALLOW = (1, 1, 1, 1)  # bottlenecks a stage of every ResNet-50 here

@@ -44,6 +44,9 @@ from openess_tpu_torch.models.image_teacher import DilationFeatureExtractor
 from openess_tpu_torch.models.semseg_e2vid import SemSegE2VID
 from openess_tpu_torch.training import build
 from openess_tpu_torch.training.checkpoint import load_pretrained_params
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 MODEL_ABS = 1e-4
 

@@ -32,6 +32,9 @@ from openess_tpu_torch.training.build import build_models
 from openess_tpu_torch.training.optim import make_optimizer
 from openess_tpu_torch.training.steps import StepBuilder
 from openess_tpu_torch.training.trainer import to_device
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 B, T, H, W = 1, 3, 32, 40
 STD_ABS = 2e-5

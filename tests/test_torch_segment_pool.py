@@ -20,6 +20,9 @@ from openess_tpu.ops.segment_pool import (
     segment_mean_pool_pallas as jpool_pallas,
 )
 from openess_tpu_torch.ops import segment_pool as k2
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 F32_REL = 1e-5
 BF16_ULP = 2.0 ** -7

@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_REL_TOL = 3e-2
 AGREE_MIN = 0.99
@@ -247,3 +251,54 @@ def test_server_refuses_frame2recon(tmp_path):
     voxel = load_settings(_frame2voxel_yaml(tmp_path), generate_log=False)
     with pytest.raises(ValueError, match="a frame2recon checkpoint cannot"):
         StreamServer(voxel, device="cpu", checkpoint=str(tmp_path))
+
+
+def test_out_dir_pngs_are_written_outside_the_timed_latency(tmp_path,
+                                                           monkeypatch):
+    """``--out_dir``: each window's PNG is byte for byte what the server
+    wrote before the write left the timed region (the first stream's
+    labels of that window, stepped in order from a zero state, through
+    ``colorize_semseg`` and ``save_png``), and no PNG write falls inside a
+    window's latency: on a clock that moves only while a PNG is written,
+    every latency reads 0."""
+    import types
+
+    from openess_tpu_torch import serve_stream
+    from openess_tpu_torch.config.settings import load_settings
+    from openess_tpu_torch.data.device_voxelize import upload_wire
+    from openess_tpu_torch.serve_stream import (
+        StreamServer,
+        serve,
+        synthetic_windows,
+    )
+    from openess_tpu_torch.utils import viz
+
+    s = load_settings(_frame2voxel_yaml(tmp_path), generate_log=False)
+    wins = list(synthetic_windows(3, 2000, 64, 96))
+    server = StreamServer(s, 2, "cpu")
+    carry, want = server.initial_state(), []
+    for i, win in enumerate(wins):
+        carry, labels, _ = server.step(carry,
+                                       upload_wire(server.pack(*win), "cpu"))
+        path = tmp_path / f"want_{i}.png"
+        viz.save_png(str(path), viz.colorize_semseg(
+            labels[0].numpy(), s.semseg_color_map, s.semseg_ignore_label))
+        want.append(path.read_bytes())
+
+    clock = [0.0]
+    save_png = viz.save_png
+
+    def clocked_save_png(path, rgb):
+        clock[0] += 1.0
+        save_png(path, rgb)
+
+    monkeypatch.setattr(viz, "save_png", clocked_save_png)
+    monkeypatch.setattr(serve_stream, "time",
+                        types.SimpleNamespace(perf_counter=lambda: clock[0]))
+    out = tmp_path / "served"
+    r = serve(server, wins, out_dir=str(out))
+    assert sorted(os.listdir(out)) == [f"pred_{i:06d}.png" for i in range(3)]
+    for i in range(3):
+        assert (out / f"pred_{i:06d}.png").read_bytes() == want[i], i
+    assert clock[0] == 3.0
+    assert r.latency_ms.tolist() == [0.0, 0.0], r.latency_ms

@@ -29,6 +29,9 @@ from openess_tpu_torch.models.image_teacher import (
 )
 from openess_tpu_torch.models.resnet import ResNet50
 from openess_tpu_torch.ops.resize import resize_bilinear
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 H, W = 48, 64
 

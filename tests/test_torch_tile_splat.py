@@ -23,6 +23,9 @@ from openess_tpu_torch.ops import _build
 from openess_tpu_torch.ops import tile_splat as ts
 from openess_tpu_torch.ops import voxelize_mxu as tmxu
 from openess_tpu_torch.ops.voxelize import voxelize_windows_trilinear
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BINNED_TOL = 1e-6

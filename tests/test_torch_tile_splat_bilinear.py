@@ -30,6 +30,9 @@ from openess_tpu_torch.ops import tile_splat as ts
 from openess_tpu_torch.ops import voxelize_chunked as tvc
 from openess_tpu_torch.ops import voxelize_mxu as tmxu
 from openess_tpu_torch.ops.voxelize import voxel_grid_bilinear_t
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 BINNED_TOL = 1e-6
 K6_PALLAS_TOL = 5e-3

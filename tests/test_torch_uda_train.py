@@ -17,6 +17,9 @@ from test_torch_recon_train import (
     student_bns,
     test_eval_and_viz_steps_match as _eval_and_viz,
 )
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 UDA = dict(if_spatial_contrastive=True)
 BRANCHES = {

@@ -20,6 +20,9 @@ from openess_tpu_torch.config.settings import Settings
 from openess_tpu_torch.data.synthetic import SyntheticESS
 from openess_tpu_torch.training.trainer import Trainer
 from openess_tpu_torch.utils import viz
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 JAX_FILES = ("confusion_e000.png", "confusion_norm_e000.png",
              "semseg_pred_gt_e000.png", "event_preview_e000.png",

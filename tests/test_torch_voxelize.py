@@ -16,6 +16,9 @@ import torch
 from openess_tpu.ops import voxelize_windows_trilinear
 from openess_tpu.ops import voxelize_chunked as jvc
 from openess_tpu_torch.ops import voxelize_chunked as tvc
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 EXACT_TOL = 1e-4   # f32 splat vs the exact scatter, relative to grid max
 PALLAS_TOL = 5e-3  # f32 splat vs the bf16-multiplying TPU kernel

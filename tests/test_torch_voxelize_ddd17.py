@@ -20,6 +20,9 @@ import torch
 from openess_tpu.ops import voxelize_chunked as jvc
 from openess_tpu.ops.voxelize import voxel_grid_bilinear_t
 from openess_tpu_torch.ops import voxelize_chunked as tvc
+from test_torch_native import cores_share, jax_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 EXACT_TOL = 1e-6
 PALLAS_TOL = 1e-2
@@ -85,6 +88,7 @@ def test_integer_packer_bit_identical_at_the_ddd17_sensor(rng, t16):
     # trimmed to the bucketed batch maximum, as the JAX loaders ship it
     from openess_tpu.native import chunk_events_windows_host
 
+    jax_native()
     x, y, p, t, valid = ev
     ref = chunk_events_windows_host(x, y, p, t.astype(np.float64), valid,
                                     **kw)

@@ -23,6 +23,9 @@ from openess_tpu.ops import voxelize as jvox
 from openess_tpu.ops import voxelize_mxu as jmxu
 from openess_tpu_torch.ops import voxelize as tvox
 from openess_tpu_torch.ops import voxelize_mxu as tmxu
+from test_torch_native import cores_share  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("cores_share")
 
 EXACT_TOL = 1e-5
 PALLAS_TOL = 5e-3
