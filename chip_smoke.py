@@ -112,6 +112,27 @@ MaskCLIP scoring of a DDD17 validation recording; P-mfu-probe,
 ``python -m openess_tpu_torch.mfu_ledger_probe`` on the flagship YAML, run
 in this process so that K1, K2 and K3 count.
 
+FC-CLIP and the assets' preflight (since the thirteenth slice), on a
+seeded random FC-CLIP file in the released layout (the released
+convnext_large_d_320 width, torch's seeded init, 847 tensors with
+``criterion.empty_weight``, ~1.5 GB in f32) and a synthetic merges file
+(48 894 distinct lines) in the temporary directory: O-fcclip-PL,
+``generate_pseudo_labels --teacher fcclip`` on four DSEC (480x640) and
+four DDD17 (200x352) frames in bf16, then the file's load and validation,
+the 504-prompt classifier, the trunk, the pixel decoder (and its
+deformable sampling alone), the transformer decoder and the
+post-processing timed apart by CUDA events, and the peak memory; FC-CLIP
+f32, the full-width image path on one 480x640 frame in f32 on the card
+(TF32 off) against the CPU with the same text classifier, the text tower
+on 14 prompts likewise, and the bf16 labels against the f32 ones;
+O-eval-af-fcclip, ``eval_annotation_free``'s FC-CLIP scoring of
+O-eval-af's recording; preflight, ``python -m openess_tpu_torch.preflight
+--fcclip --bpe`` on the files (PASS) and on a copy with one shape wrong
+(FAIL naming the key). And L-raw-wire, after the DSEC grid runs: raw-wire
+DSEC batches assembled by three ``PrefetchLoader`` workers with the
+packer's recycled buffers, each on its own stream, against in-line
+assembly, key by key, over several epochs.
+
 The settings are built in code from those YAMLs' values, since PyYAML may be
 absent where the card is (the bench, run as its own process, reads the
 flagship YAML).
@@ -142,7 +163,7 @@ theirs, its splat into a NaN-filled grid, edge cases), K6 vs plain
 splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer
 (K5, the host voxelizer, each at 1 and 4 workers, and the histogram), the
 DDD17 linear probe from disk (K6 and the host voxelizer, each at 1 and 4
-workers), T8-pretrain-recon, F8-finetune-recon,
+workers), L-raw-wire, T8-pretrain-recon, F8-finetune-recon,
 U8-uda-recon (each with its trace, spans and K2's time), the
 ``frame2recon`` reference, the released checkpoints, the six offline and
 probe phases, the bench, and the summary (the tenth slice's phases sit beside the paths they extend: the
@@ -223,6 +244,8 @@ BENCH_KEYS = (              # keys its line must carry
 RECON_F32_ABS_TOL = 1e-4    # reconstruction, f32 K3 vs f32 plain gates
 RECON_BF16_ABS_TOL = 2e-2   # ... bf16 K3 vs f32 plain gates ([0, 1] image)
 MASKCLIP_REL_TOL = 1e-3     # MaskCLIP f32 logits, CUDA vs CPU, of max
+FCCLIP_REL_TOL = 1e-3       # FC-CLIP f32 class scores / text, CUDA vs CPU
+RAW_LOADER_EPOCHS = 6       # L-raw-wire: epochs of 4 batches compared
 VIS_FILES = ("confusion", "confusion_norm", "semseg_pred_gt",
              "event_preview", "pca_latent")  # the JAX trainer's dumps
 
@@ -3854,6 +3877,451 @@ def offline_eval_phase(torch, dev, smi, root, files, zero_counts,
     return counts
 
 
+def raw_wire_loader_phase(torch, dev, smi, windows):
+    """L-raw-wire: the flagship raw-wire batches (B = 2 of the eight
+    samples' T = 20 windows of 100 000 events) assembled by three
+    ``PrefetchLoader`` workers, each packing with the C++ packer's recycled
+    buffers (``wire_reuse_ok`` on a card) and uploading on its own stream,
+    against the same indices assembled in line: every key of every batch
+    equal, over ``RAW_LOADER_EPOCHS`` shuffled epochs. Each epoch starts
+    with the host library's binding undone, so that the three workers are
+    its first callers, as in ``tests/test_torch_gpu.py``'s raw-wire loader
+    case (concurrent first calls once rebound ``argtypes`` under a running
+    call)."""
+    from openess_tpu_torch import native
+    from openess_tpu_torch.data.device_voxelize import wire_reuse_ok
+    from openess_tpu_torch.data.dsec import event_batch
+    from openess_tpu_torch.data.pipeline import PrefetchLoader, batch_indices
+    from openess_tpu_torch.training.trainer import to_device
+
+    phase("L-raw-wire: PrefetchLoader, 3 workers, DSEC raw-wire batches "
+          "(B = 2, T = 20, 100k events) with the packer's recycled buffers, "
+          "against in-line assembly")
+    s = flagship_settings(wire_format="raw_events", num_cpu_workers=1)
+
+    class Windows:
+        def __len__(self):
+            return len(windows)
+
+        def get_batch(self, idx):
+            out = event_batch(s, [windows[i] for i in idx], dev)
+            out["label"] = np.asarray(idx, np.int64)
+            return out
+
+    data = Windows()
+    t0 = time.perf_counter()
+    n = bad = 0
+    diffs = []
+    for epoch in range(RAW_LOADER_EPOCHS):
+        native._LIBRARY = None  # no worker is running: nothing is calling it
+        loader = PrefetchLoader(
+            data, 2, shuffle=True, rng=np.random.default_rng(epoch),
+            device=dev, put_fn=lambda b: to_device(b, dev), num_workers=3)
+        plan = batch_indices(len(data), 2, shuffle=True,
+                             rng=np.random.default_rng(epoch),
+                             drop_last=True, pad_last=False)
+        got = [{k: v.clone() for k, v in b.items()} for b in loader]
+        for (idx, _), batch in zip(plan, got):
+            ref = to_device(data.get_batch(idx), dev)
+            n += 1
+            keys_ok = sorted(batch) == sorted(ref)
+            wrong = [k for k in ref if not (k in batch and batch[k].shape
+                                            == ref[k].shape
+                                            and torch.equal(batch[k], ref[k]))]
+            if wrong or not keys_ok:
+                bad += 1
+                diffs.append((epoch, list(idx), wrong))
+    wall = time.perf_counter() - t0
+    print(f"{n} batches compared over {RAW_LOADER_EPOCHS} epochs in "
+          f"{wall:.1f} s [{smi}]; batches with a key unequal: {bad} "
+          f"{diffs[:4]}")
+    report_checks("L-raw-wire", {
+        "the packer hands out recycled buffers on the card":
+        wire_reuse_ok(dev),
+        "every batch delivered": n == RAW_LOADER_EPOCHS * (len(windows) // 2),
+        "every key of every batch equal to the in-line one": bad == 0,
+    })
+
+
+def clip_merges(n=48894):
+    """A synthetic CLIP merges file's lines: merges that rebuild the VILD
+    templates' words first, then distinct filler pairs of CJK characters,
+    ``n`` in all."""
+    out, seen = [], set()
+    for word in ("photo", "there", "this", "scene", "small", "medium",
+                 "large", "the", "is", "in", "of"):
+        parts = list(word[:-1]) + [word[-1] + "</w>"]
+        while len(parts) > 1:
+            pair = (parts[0], parts[1])
+            if pair not in seen:
+                seen.add(pair)
+                out.append(" ".join(pair))
+            parts = [parts[0] + parts[1]] + parts[2:]
+    i = 0
+    while len(out) < n:
+        out.append(f"{chr(0x4E00 + i // 160)} {chr(0x3400 + i % 160)}")
+        i += 1
+    return out
+
+
+def write_fcclip_files(torch, root, seed=0):
+    """A seeded random FC-CLIP checkpoint in the released layout (the
+    port's modules at the released width with torch's seeded init, under
+    the released names, ``{"model": ...}`` with ``criterion.empty_weight``)
+    and a synthetic merges file: ``{"ckpt", "bpe", "sd"}``."""
+    import gzip
+
+    from openess_tpu_torch.models.fcclip import CLIPTextEncoder, FCCLIP
+
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, text = FCCLIP(), CLIPTextEncoder()
+    sd = dict(model.state_dict())
+    sd.update({"backbone.clip_model." + k: v
+               for k, v in text.state_dict().items()})
+    sd["criterion.empty_weight"] = torch.ones(134)
+    del model, text
+    files = {"ckpt": os.path.join(root, "fcclip_cocopan.pth"),
+             "bpe": os.path.join(root, "bpe_simple_vocab_16e6.txt.gz"),
+             "sd": sd}
+    torch.save({"model": sd}, files["ckpt"])
+    with gzip.open(files["bpe"], "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: synthetic"] + clip_merges()))
+    n = sum(v.numel() for v in sd.values())
+    print(f"FC-CLIP file: {len(sd)} tensors, {n / 1e6:.1f} M values, "
+          f"{os.path.getsize(files['ckpt']) / 2 ** 30:.2f} GiB, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return files
+
+
+def fcclip_frames(root, rng):
+    """Four 200x352 DDD17 frames (``images_aligned`` of ``ddd17_fc/dir0``,
+    smooth random colour), the working resolution of DDD17's frames."""
+    from PIL import Image
+
+    d = os.path.join(root, "ddd17_fc", "dir0", "images_aligned")
+    os.makedirs(d)
+    for i in range(4):
+        Image.fromarray(smooth_frame(rng, 200, 352)).save(
+            os.path.join(d, f"img_{i + 1:08d}.png"))
+    return os.path.join(root, "ddd17_fc")
+
+
+def offline_fcclip_pl_phase(torch, dev, smi, root, fc, zero_counts,
+                            read_counts):
+    """O-fcclip-PL: ``generate_pseudo_labels --teacher fcclip`` on four
+    DSEC frames (480x640) and four DDD17 frames (200x352, padded to
+    224x352), bf16; the PNGs against the labeler's own labels; then the
+    parts of one image timed apart (CUDA events, warm), the peak memory and
+    the image path's FLOPs."""
+    from PIL import Image
+
+    from openess_tpu_torch import generate_pseudo_labels as gpl
+    from openess_tpu_torch.models.fcclip import (
+        DSEC_USER_CLASSES,
+        load_fcclip,
+        maxpool_argmax,
+        prepare_class_names,
+    )
+    from openess_tpu_torch.models.fcclip.labeler import (
+        DATASET_REMAP,
+        pad_to_32,
+        text_classifier,
+    )
+    from openess_tpu_torch.models.fcclip.tokenizer import SimpleTokenizer
+    from openess_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+    from openess_tpu_torch.utils.flops import count_flops, peak_bf16_flops
+
+    phase("O-fcclip-PL: generate_pseudo_labels --teacher fcclip, FC-CLIP "
+          "convnext_large_d_320 at the released width, DSEC 480x640 and "
+          "DDD17 200x352, bf16")
+    ddd17 = fcclip_frames(root, np.random.default_rng(16))
+    trees = {"dsec": os.path.join(root, "dsec"), "ddd17": ddd17}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    walls, pngs = {}, {}
+    for dataset, tree in trees.items():
+        walls[dataset], _ = run_tool(gpl.main, [
+            "--root", tree, "--dataset", dataset, "--teacher", "fcclip",
+            "--fcclip_ckpt", fc["ckpt"], "--bpe_vocab", fc["bpe"],
+            "--out_name", "pl_fcclip"])
+        pngs[dataset] = sorted(os.path.join(dp, f)
+                               for dp, _, fs in os.walk(tree)
+                               if "/pl_fcclip" in dp for f in fs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    tool_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for dataset in trees:
+        print(f"{dataset}: {len(pngs[dataset])} PNGs in {walls[dataset]:.1f} "
+              f"s (the file's load and validation, the classifier and the "
+              f"model's build included) [{smi}]")
+
+    t0 = time.perf_counter()
+    model, text = load_fcclip(fc["ckpt"], dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    overlap, nt, prompts = prepare_class_names(DSEC_USER_CLASSES)
+    nt = tuple(nt)
+    tokens = SimpleTokenizer(fc["bpe"])(prompts)
+    t0 = time.perf_counter()
+    tc = text_classifier(text, tokens)
+    torch.cuda.synchronize()
+    t_text = time.perf_counter() - t0
+    text_ms = cuda_ms(torch, lambda: text_classifier(text, tokens),
+                      torch.empty(256 << 20, dtype=torch.uint8, device=dev),
+                      iters=5, warmup=1)
+    del text
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    def labels(path, remap, k):
+        # the tool's arithmetic: the PNG in [0, 1], the labeler's * 255
+        img = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255.0
+        x = torch.from_numpy(img[None]).to(dev)
+        with torch.no_grad():
+            sem = model(pad_to_32(x * 255.0), tc, nt, overlap)
+        return maxpool_argmax(sem[:, :img.shape[0], :img.shape[1]], remap,
+                              k)[0].cpu().numpy()
+
+    agree = {}
+    for dataset, paths in pngs.items():
+        remap, k = DATASET_REMAP[dataset]
+        agree[dataset] = min(
+            float((np.asarray(Image.open(p)) == labels(p.replace(
+                "/pl_fcclip/", "/images_aligned/"), remap, k)).mean())
+            for p in paths)
+
+    frame = np.asarray(Image.open(pngs["dsec"][0].replace(
+        "/pl_fcclip/", "/images_aligned/")).convert("RGB"), np.float32)
+    x = pad_to_32(torch.from_numpy(frame[None]).to(dev))
+    tcv = model.classifier(tc)
+    head = model.sem_seg_head
+    parts = {}
+    with torch.no_grad():
+        feats = model.encode_image(x)
+        mf, ms = head.pixel_decoder(feats)
+        out = head.predictor(ms, mf, tcv, nt)
+        parts["trunk"] = cuda_ms(torch, lambda: model.encode_image(x), flush,
+                                 iters=10)
+        parts["pixel decoder"] = cuda_ms(
+            torch, lambda: head.pixel_decoder(feats), flush, iters=10)
+        shapes = [(f.shape[1], f.shape[2]) for f in ms]
+        lin = sum(h * w for h, w in shapes)
+        g = torch.Generator(device=dev).manual_seed(0)
+        value = torch.randn(1, lin, 8, 32, device=dev, generator=g,
+                            dtype=torch.bfloat16)
+        loc = torch.rand(1, lin, 8, 3, 4, 2, device=dev, generator=g)
+        w = torch.softmax(torch.rand(1, lin, 8, 12, device=dev, generator=g),
+                          -1).reshape(1, lin, 8, 3, 4)
+        sampling = cuda_ms(torch, lambda: ms_deform_attn(value, shapes, loc, w),
+                           flush, iters=10)
+        n_enc = len(head.pixel_decoder.transformer.encoder.layers)
+        parts["transformer decoder"] = cuda_ms(
+            torch, lambda: head.predictor(ms, mf, tcv, nt), flush, iters=10)
+        remap = DATASET_REMAP["dsec"][0]
+        parts["post-processing"] = cuda_ms(
+            torch, lambda: maxpool_argmax(model.semantic_inference(
+                feats, out, tcv, nt, overlap, (480, 640)), remap, 11),
+            flush, iters=10)
+        parts["whole image (pad to labels)"] = cuda_ms(
+            torch, lambda: maxpool_argmax(model(x, tc, nt, overlap), remap,
+                                          11), flush, iters=10)
+        xd = pad_to_32(torch.rand(1, 200, 352, 3, device=dev) * 255)
+        ddd17_ms = cuda_ms(torch, lambda: maxpool_argmax(
+            model(xd, tc, nt, overlap)[:, :200], DATASET_REMAP["ddd17"][0],
+            6), flush, iters=10)
+        flops, _ = count_flops(lambda: model(x, tc, nt, overlap))
+        trunk_flops, _ = count_flops(lambda: model.encode_image(x))
+        avg, prof_wall, _ = device_profile(torch, lambda: [maxpool_argmax(
+            model(x, tc, nt, overlap), remap, 11) for _ in range(3)])
+    print("the whole 480x640 image under the profiler, 3 images:")
+    print_profile(avg, prof_wall, 3, "image", smi)
+    print(f"device kernels and copies per image: "
+          f"{sum(e.count for e in avg) / 3:.0f}")
+    whole = parts["whole image (pad to labels)"]
+    peak = peak_bf16_flops(torch.cuda.get_device_name(0))
+    print(f"file load and validation {t_load:.2f} s; the 504-prompt "
+          f"classifier {t_text:.2f} s the first time, {text_ms:.1f} ms warm "
+          f"(2 chunks of 256) [{smi}]")
+    print("one 480x640 DSEC image, bf16, ms (CUDA events, median of 10): "
+          + "; ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + f"; the deformable sampling alone {sampling:.3f} a call x "
+          f"{n_enc} layers; one 200x352 DDD17 image {ddd17_ms:.2f} [{smi}]")
+    print(f"FLOPs of one 480x640 image (FlopCounterMode: convolutions and "
+          f"matrix products): {flops / 1e12:.3f} TFLOP, the trunk "
+          f"{trunk_flops / 1e12:.3f}; {flops / whole / 1e9:.1f} TFLOP/s "
+          f"({flops / whole * 1e3 / peak:.1%} of the bf16 peak); peak memory "
+          f"{tool_peak:.2f} GiB in the tool, "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB in all; "
+          f"launches {counts}; PNGs equal to the labeler's labels on "
+          f"{agree} of the pixels")
+    shapes_ok = all(
+        np.asarray(Image.open(p)).shape == size and np.asarray(
+            Image.open(p)).dtype == np.uint8 and np.asarray(
+            Image.open(p)).max() < k
+        for dataset, size, k in (("dsec", (480, 640), 11),
+                                 ("ddd17", (200, 352), 6))
+        for p in pngs[dataset])
+    report_checks("O-fcclip-PL", {
+        "4 DSEC and 4 DDD17 PNGs": len(pngs["dsec"]) == 4
+        and len(pngs["ddd17"]) == 4,
+        "uint8 at the frames' size, classes of the dataset": shapes_ok,
+        "the classifier [36, 768] finite": tuple(tc.shape) == (36, 768)
+        and bool(torch.isfinite(tc).all()),
+        "the PNGs are the labeler's (>= 0.999 of the pixels)":
+        min(agree.values()) >= 0.999,
+        "no kernel of the port launched": sum(counts.values()) == 0,
+    })
+    del model, feats, mf, ms, out, value, loc, w, flush
+    torch.cuda.empty_cache()
+    return counts
+
+
+def fcclip_f32_phase(torch, dev, smi, root, fc):
+    """FC-CLIP in f32: the full-width image path on one 480x640 DSEC frame
+    on the card (TF32 off) against the CPU, both given the same 504-prompt
+    text classifier (made on the card: the text tower over 504 prompts is
+    slow on the CPU); the text tower on one class's 14 prompts the same
+    way; and the bf16 labels on the card against the f32 ones."""
+    from PIL import Image
+
+    from openess_tpu_torch.models.fcclip import (
+        DSEC_USER_CLASSES,
+        build_fcclip,
+        convert_fcclip_checkpoint,
+        maxpool_argmax,
+        prepare_class_names,
+    )
+    from openess_tpu_torch.models.fcclip.labeler import (
+        DATASET_REMAP,
+        pad_to_32,
+        text_classifier,
+    )
+    from openess_tpu_torch.models.fcclip.tokenizer import SimpleTokenizer
+
+    phase("FC-CLIP f32: the image path at full width on one 480x640 frame, "
+          "CUDA (TF32 off) vs CPU; the text tower on 14 prompts; bf16 vs f32 "
+          "labels")
+    t0 = time.perf_counter()
+    image_sd, text_sd = convert_fcclip_checkpoint(fc["ckpt"])
+    cpu = torch.device("cpu")
+    models = {d.type: build_fcclip(image_sd, text_sd, d, torch.float32)
+              for d in (cpu, dev)}
+    tok = SimpleTokenizer(fc["bpe"])
+    overlap, nt, prompts = prepare_class_names(DSEC_USER_CLASSES)
+    nt = tuple(nt)
+    one = tok(prepare_class_names(("car",))[2])
+    with torch.no_grad():
+        t_cpu = models["cpu"][1](torch.from_numpy(one))
+        t_gpu = models["cuda"][1](torch.from_numpy(one).to(dev)).cpu()
+    text_err = float((t_gpu - t_cpu).abs().max() / t_cpu.abs().max())
+    tc = text_classifier(models["cuda"][1], tok(prompts))
+    frame = np.asarray(Image.open(os.path.join(
+        root, "dsec", "train", "zurich_city_00_a", "images_aligned", "left",
+        "000000.png")).convert("RGB"), np.float32)
+    x = pad_to_32(torch.from_numpy(frame[None]))
+    with torch.no_grad():
+        t1 = time.perf_counter()
+        ref = models["cpu"][0](x, tc.cpu(), nt, overlap)
+        t_ref = time.perf_counter() - t1
+        got = models["cuda"][0](x.to(dev), tc, nt, overlap).cpu()
+    err = float((got - ref).abs().max() / ref.abs().max())
+    del models
+    half = build_fcclip(image_sd, text_sd, dev, torch.bfloat16)[0]
+    with torch.no_grad():
+        sem16 = half(x.to(dev), tc, nt, overlap).cpu()
+    del half, image_sd, text_sd
+    torch.cuda.empty_cache()
+    remap = DATASET_REMAP["dsec"][0]
+    agree = float((maxpool_argmax(sem16, remap, 11)
+                   == maxpool_argmax(got, remap, 11)).float().mean())
+    gap = float((sem16 - got).abs().max() / got.abs().max())
+    print(f"class scores [1, 480, 640, 36]: CUDA f32 vs CPU f32 max|diff| "
+          f"{err:.3e} of max (bound {FCCLIP_REL_TOL:.0e}; the CPU took "
+          f"{t_ref:.1f} s); text tower on 14 prompts {text_err:.3e} of max; "
+          f"CUDA bf16 vs f32 {gap:.3e} of max, labels equal on {agree:.4f} "
+          f"of the pixels; phase {time.perf_counter() - t0:.1f} s [{smi}]")
+    report_checks("FC-CLIP f32", {
+        "CUDA f32 class scores within the bound of the CPU's": err
+        <= FCCLIP_REL_TOL,
+        "CUDA f32 text embeddings within the bound of the CPU's": text_err
+        <= FCCLIP_REL_TOL,
+        "finite": bool(torch.isfinite(got).all() and torch.isfinite(
+            sem16).all()),
+    })
+
+
+def offline_eval_fcclip_phase(torch, dev, smi, root, fc, zero_counts,
+                              read_counts):
+    """O-eval-af-fcclip: ``eval_annotation_free``'s FC-CLIP scoring of the
+    DDD17 validation recording O-eval-af wrote (5 frames, one batch of 8
+    with 3 rows padded), 6 classes, the frames as the source, bf16."""
+    from openess_tpu_torch import eval_annotation_free as ev
+
+    phase("O-eval-af-fcclip: eval_annotation_free --teacher fcclip, DDD17 "
+          "200x352 frames, 6 classes, bf16")
+    s = ddd17_probe_settings(dataset_path_b=os.path.join(root, "ddd17_eval"),
+                             nr_events_window_b=2000)
+    zero_counts()
+    t0 = time.perf_counter()
+    infer = ev.build_fcclip_infer(s, fc["ckpt"], fc["bpe"], dev)
+    t1 = time.perf_counter()
+    out = ev.evaluate(s, infer, "frame", dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    del infer
+    print({k: round(float(v), 2) for k, v in out.items() if k != "cm"})
+    scored = int(out["cm"].sum())
+    print(f"labeler built in {t1 - t0:.2f} s (load, validation, the "
+          f"504-prompt classifier); 1 batch of {s.batch_size_b} in "
+          f"{wall:.2f} s (read, FC-CLIP, confusion) [{smi}]; {scored} pixels "
+          f"scored; launches {counts}")
+    report_checks("O-eval-af-fcclip", {
+        "5 frames scored once, the padded rows not": 0 < scored
+        <= 5 * 200 * 352,
+        "miou and acc in [0, 100]": 0 <= out["miou"] <= 100
+        and 0 <= out["acc"] <= 100,
+    })
+    return counts
+
+
+def preflight_phase(torch, smi, root, fc):
+    """``python -m openess_tpu_torch.preflight --fcclip --bpe`` on the
+    files (PASS, exit 0), then ``--fcclip`` on a copy with one shape wrong
+    (FAIL naming the key, exit 1), each in its own process."""
+    phase("preflight: python -m openess_tpu_torch.preflight --fcclip --bpe, "
+          "then a copy with one shape wrong")
+    key = "sem_seg_head.predictor.query_embed.weight"
+    bad = os.path.join(root, "fcclip_wrong.pth")
+    sd = dict(fc["sd"])
+    sd[key] = torch.zeros(251, 256)
+    torch.save({"model": sd}, bad)
+    del sd
+    runs = {}
+    for name, argv in (("released layout", ["--fcclip", fc["ckpt"], "--bpe",
+                                            fc["bpe"]]),
+                       ("one shape wrong", ["--fcclip", bad])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "openess_tpu_torch.preflight",
+                            *argv], capture_output=True, text=True, cwd=ROOT,
+                           timeout=600)
+        runs[name] = r
+        print(f"{name}: exit {r.returncode} in {time.perf_counter() - t0:.1f}"
+              f" s [{smi}]\n{r.stdout.strip()}")
+        if r.returncode not in (0, 1):
+            print(r.stderr[-3000:])
+    os.remove(bad)
+    good, wrong = runs["released layout"], runs["one shape wrong"]
+    report_checks("preflight", {
+        "PASS on the files, exit 0": good.returncode == 0
+        and "PASS  fcclip" in good.stdout and "PASS  bpe_vocab" in good.stdout,
+        "FAIL naming the key on the wrong copy, exit 1": wrong.returncode == 1
+        and "FAIL  fcclip" in wrong.stdout and key in wrong.stdout,
+    })
+
+
 def mfu_probe_phase(torch, smi, zero_counts, read_counts):
     """P-mfu-probe: ``python -m openess_tpu_torch.mfu_ledger_probe`` on the
     flagship YAML, in this process so that its launches are counted."""
@@ -4300,6 +4768,7 @@ def main():
         launches[f"dsec_grid_{how}_{workers}"] = dsec_grid_phase(
             torch, dev, smi, windows, zero_counts, read_counts, host,
             how=how, workers=workers)
+    raw_wire_loader_phase(torch, dev, smi, windows)
     del windows
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -4366,6 +4835,14 @@ def main():
             torch, dev, smi, root, files, zero_counts, read_counts)
         launches["offline_eval"] = offline_eval_phase(
             torch, dev, smi, root, files, zero_counts, read_counts)
+        fc = write_fcclip_files(torch, root)
+        launches["offline_fcclip_pl"] = offline_fcclip_pl_phase(
+            torch, dev, smi, root, fc, zero_counts, read_counts)
+        fcclip_f32_phase(torch, dev, smi, root, fc)
+        launches["offline_eval_fcclip"] = offline_eval_fcclip_phase(
+            torch, dev, smi, root, fc, zero_counts, read_counts)
+        preflight_phase(torch, smi, root, fc)
+        del fc
     launches["mfu_probe"] = mfu_probe_phase(torch, smi, zero_counts,
                                             read_counts)
     bench_phase(torch)

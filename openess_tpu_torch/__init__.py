@@ -20,7 +20,10 @@ disk on the raw-event or grid wire (K4, K5, K6). The host's event code
 ``csrc/``, built with the host compiler at first use and bound by
 ``native.py``; ``data/pipeline.PrefetchLoader`` assembles batches ahead of
 the step. Around them: ``convert_checkpoints`` (the released torch files
-into a weights file of the port), ``bench`` (the one-line benchmark),
+into a weights file of the port), the offline tier (reconstructions,
+superpixels, MaskCLIP and FC-CLIP pseudo-labels, annotation-free
+evaluation, ``preflight`` for the downloaded assets), ``bench`` (the
+one-line benchmark),
 ``utils/profiling`` (timers and ``--profile``'s trace) and
 ``utils/flops`` (FLOPs and MFU).
 

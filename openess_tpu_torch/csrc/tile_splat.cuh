@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
 
 namespace tile_splat {
@@ -288,7 +289,9 @@ __device__ __forceinline__ void store_tile(const float* acc, float* grid,
 // device; returns the CUDA error. Needed whenever static and dynamic
 // shared memory pass 48 KB together (K1's splat: 7 KB of segments beside a
 // 41 KB tile). The attribute is set once a (kernel, device): a table
-// remembers what each already allows.
+// remembers what each already allows. Launches come from several host
+// threads at once (the loader's workers call through ctypes, which drops
+// the GIL), so the table is read and written under a lock.
 template <class Kernel>
 inline cudaError_t allow_smem(Kernel kernel, int smem) {
   struct Allowed {
@@ -297,6 +300,8 @@ inline cudaError_t allow_smem(Kernel kernel, int smem) {
   };
   static Allowed table[128];
   static int used = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> guard(lock);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

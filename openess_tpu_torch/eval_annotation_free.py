@@ -10,8 +10,12 @@ confusion matrix's mIoU and accuracy against the labels:
   (bf16) on the settings' ``clip.maskclip_checkpoint``,
   ``visual_projs_path`` and ``text_embeddings_path`` (one text row per
   class), the argmax of its logits;
-- ``--teacher fcclip`` is not ported yet (ROADMAP Queue 1 item 11c) and
-  exits with an error.
+- ``--teacher fcclip``: the FC-CLIP labeler
+  (``models/fcclip/labeler.build_fcclip_labeler``, bf16) on the released
+  checkpoint (``--fcclip_ckpt``) and the CLIP merges file
+  (``--bpe_vocab``): the 36-class vocabulary max-pooled into DSEC's 11 or
+  DDD17's 6 classes (the dataset read off ``dataset.name_b``), which must
+  be the settings' ``semseg_num_classes``.
 
 The validation set runs in batches of ``batch_size``; the last batch is
 padded to the full size with its last sample and the padded rows' labels
@@ -32,11 +36,11 @@ from openess_tpu_torch import resolve_device
 from openess_tpu_torch.config.settings import load_settings
 from openess_tpu_torch.data.loaders import build_datasets
 from openess_tpu_torch.generate_pseudo_labels import (
-    FCCLIP_NOT_PORTED,
     build_maskclip,
     load_text_embeddings,
 )
 from openess_tpu_torch.metrics import MetricsSemseg
+from openess_tpu_torch.models.fcclip.labeler import build_fcclip_labeler
 
 
 def build_maskclip_infer(s, device):
@@ -57,6 +61,20 @@ def build_maskclip_infer(s, device):
         logits = model(torch.as_tensor(img).to(device), text)
         return torch.argmax(logits, dim=-1)
 
+    return infer
+
+
+def build_fcclip_infer(s, fcclip_ckpt: str, bpe_vocab: str, device):
+    """``images [B, H, W, 3] in [0, 1] (numpy) -> class ids [B, H, W]`` (a
+    tensor on ``device``) through the FC-CLIP labeler of the settings'
+    dataset."""
+    dataset = "ddd17" if "DDD17" in s.dataset_name_b.upper() else "dsec"
+    infer, num_classes = build_fcclip_labeler(fcclip_ckpt, bpe_vocab,
+                                              dataset, device)
+    if num_classes != s.semseg_num_classes:
+        raise SystemExit(
+            f"settings semseg_num_classes={s.semseg_num_classes} does not "
+            f"match the {dataset} FC-CLIP remap ({num_classes} classes)")
     return infer
 
 
@@ -89,11 +107,16 @@ def main(argv=None):
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
 
-    if args.teacher == "fcclip":
-        raise SystemExit(FCCLIP_NOT_PORTED)
+    if args.teacher == "fcclip" and not (args.fcclip_ckpt and args.bpe_vocab):
+        raise SystemExit("--teacher fcclip needs --fcclip_ckpt/--bpe_vocab")
     device = resolve_device(args.device)
     s = load_settings(args.settings_file, generate_log=False)
-    out = evaluate(s, build_maskclip_infer(s, device), args.source, device)
+    if args.teacher == "fcclip":
+        infer = build_fcclip_infer(s, args.fcclip_ckpt, args.bpe_vocab,
+                                   device)
+    else:
+        infer = build_maskclip_infer(s, device)
+    out = evaluate(s, infer, args.source, device)
     print({k: round(float(v), 2) for k, v in out.items() if k != "cm"})
     return out
 

@@ -4,18 +4,29 @@
 vocabulary onto the 11 DSEC classes, :104-127, and writes argmax PNGs to
 ``pl_fcclip_rgb/``).
 
+``--teacher fcclip`` (the default, the reference's teacher): the FC-CLIP
+meta-architecture (``models/fcclip``, bf16) on the released checkpoint
+(``--fcclip_ckpt fcclip_cocopan.pth``, held to the released manifest
+first), its VILD prompt ensemble over the 36-class vocabulary built by the
+checkpoint's own CLIP text tower (``--bpe_vocab
+bpe_simple_vocab_16e6.txt.gz``, the CLIP merges file), max-pooled into the
+dataset's classes (``models/fcclip/labeler.build_fcclip_labeler``).
+
 ``--teacher maskclip``: the dense MaskCLIP labeler
 (``models/maskclip.MaskClipFeatureExtractor``, bf16) on the released
 ``--clip_ckpt`` (``ViT16_clip_backbone.pth``) and ``--visual_projs``
 (``ViT16_clip_weights.pth``), against ``--text_embeddings`` (``.npy`` or
 ``.pth``, one row per vocabulary entry); the dataset's remap
 (``models/fcclip/labeler.DATASET_REMAP``) is cut to the vocabulary's
-length. ``--teacher fcclip`` is not ported yet (ROADMAP Queue 1 item 11c)
-and exits with an error.
+length.
 
 Every ``images_aligned`` frame of a DSEC or DDD17 tree gets a uint8 PNG
 under ``--out_name`` in its place; existing outputs are skipped;
 ``--shard/--num_shards`` splits the frames between processes.
+
+    python -m openess_tpu_torch.generate_pseudo_labels --root /data/DSEC \\
+        --fcclip_ckpt fcclip_cocopan.pth \\
+        --bpe_vocab bpe_simple_vocab_16e6.txt.gz
 
     python -m openess_tpu_torch.generate_pseudo_labels --root /data/DSEC \\
         --teacher maskclip --clip_ckpt ViT16_clip_backbone.pth \\
@@ -38,12 +49,10 @@ from openess_tpu_torch.models.convert import (
 )
 from openess_tpu_torch.models.fcclip.labeler import (
     DATASET_REMAP,
+    build_fcclip_labeler,
     maxpool_argmax,
 )
 from openess_tpu_torch.models.maskclip import MaskClipFeatureExtractor
-
-FCCLIP_NOT_PORTED = ("--teacher fcclip: the FC-CLIP teacher is not ported "
-                     "yet (ROADMAP Queue 1 item 11c); use --teacher maskclip")
 
 
 def _load(path):
@@ -86,6 +95,18 @@ def build_maskclip_infer(args, device):
     return infer
 
 
+def build_fcclip_infer(args, device):
+    """``image [1, H, W, 3] in [0, 1] (numpy) -> uint8 labels [1, H, W]``
+    (numpy) through the FC-CLIP labeler; ``--num_classes`` must be the
+    dataset remap's."""
+    infer, num_classes = build_fcclip_labeler(
+        args.fcclip_ckpt, args.bpe_vocab, args.dataset, device)
+    if num_classes != args.num_classes:
+        raise SystemExit(f"--num_classes {args.num_classes} does not match "
+                         f"the {args.dataset} remap ({num_classes} classes)")
+    return lambda img: infer(img).cpu().numpy()
+
+
 def main(argv=None):
     from PIL import Image
 
@@ -112,11 +133,16 @@ def main(argv=None):
         args.num_classes = DATASET_REMAP[args.dataset][1]
 
     if args.teacher == "fcclip":
-        raise SystemExit(FCCLIP_NOT_PORTED)
-    if not (args.clip_ckpt and args.visual_projs and args.text_embeddings):
-        raise SystemExit("--teacher maskclip needs --clip_ckpt/"
-                         "--visual_projs/--text_embeddings")
-    infer = build_maskclip_infer(args, resolve_device(args.device))
+        if not (args.fcclip_ckpt and args.bpe_vocab):
+            raise SystemExit("--teacher fcclip needs --fcclip_ckpt and "
+                             "--bpe_vocab")
+        infer = build_fcclip_infer(args, resolve_device(args.device))
+    else:
+        if not (args.clip_ckpt and args.visual_projs
+                and args.text_embeddings):
+            raise SystemExit("--teacher maskclip needs --clip_ckpt/"
+                             "--visual_projs/--text_embeddings")
+        infer = build_maskclip_infer(args, resolve_device(args.device))
 
     paths = frame_paths(args.dataset, args.root)
     for i, p in enumerate(paths[args.shard::args.num_shards]):

@@ -22,7 +22,6 @@ hold these functions to. ctypes releases the GIL inside every call.
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 
 import numpy as np
@@ -36,10 +35,27 @@ from openess_tpu_torch.ops.voxelize_chunked import (
 SOURCE = "event_ops.cpp"
 
 
-@functools.cache
+_LIBRARY = None
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The host library, built and loaded once per process, with every C
-    entry's argument types bound."""
+    entry's argument types bound once, under a lock: the loader's workers
+    reach it from several threads at once, and ctypes reads a function's
+    converters without holding them, so binding ``argtypes`` again while
+    another thread calls that function frees the converters it is using
+    (``ArgumentError: ... 'dict' object is not callable``)."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    with _LIBRARY_LOCK:
+        if _LIBRARY is None:
+            _LIBRARY = _bind_library()
+        return _LIBRARY
+
+
+def _bind_library() -> ctypes.CDLL:
     from openess_tpu_torch.ops import _build
 
     lib = _build.load_host(SOURCE)

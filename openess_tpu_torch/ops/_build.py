@@ -130,8 +130,12 @@ def load(source: str) -> ctypes.CDLL:
 @functools.cache
 def entry(source: str, name: str, *argtypes):
     """The C entry ``name`` of ``csrc/<source>``'s library, taking
-    ``argtypes`` and then the stream, returning an int error code."""
-    fn = getattr(load(source), name)
+    ``argtypes`` and then the stream, returning an int error code. Each
+    call makes a function object of its own (``lib[name]``, not the
+    library's shared attribute) and binds it before handing it out: two
+    threads' first calls may both run here, and rebinding ``argtypes`` on an
+    object another thread is calling frees the converters ctypes is using."""
+    fn = load(source)[name]
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

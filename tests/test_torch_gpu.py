@@ -564,6 +564,47 @@ def test_prefetch_loader_on_the_card_matches_inline(cuda, wire):
                 assert torch.equal(batch[k], ref[k]), k
 
 
+def test_k5_launched_from_threads_at_once_matches_plain(cuda):
+    """Eight threads launch K5 at once (as the loader's workers do, each
+    on its own stream, ctypes dropping the GIL), at frame sizes whose
+    shared memory differs, so that ``tile_splat::allow_smem``'s table is
+    read and written concurrently: every grid within 1e-5 of its plain
+    version's max."""
+    import threading
+
+    sizes = [(48, 96), (37, 130), (64, 200), (100, 150), (37, 151),
+             (80, 96), (120, 64), (33, 257)]
+    evs = [tuple(a.to(cuda) for a in _grid_events(
+        np.random.default_rng(i), 2, 3000, h, w, "dense", False))
+        for i, (h, w) in enumerate(sizes)]
+    got, errors = {}, []
+    start = threading.Barrier(len(sizes))
+
+    def work(i):
+        h, w = sizes[i]
+        try:
+            stream = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(stream):
+                start.wait()
+                got[i] = k56.voxelize_windows_trilinear_mxu(
+                    *evs[i], num_windows=2, num_bins=5, height=h, width=w)
+            stream.synchronize()
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(len(sizes))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for i, (h, w) in enumerate(sizes):
+        ref = voxelize_windows_trilinear(*evs[i], num_windows=2, num_bins=5,
+                                         height=h, width=w)
+        assert (got[i] - ref).abs().max() <= 1e-5 * ref.abs().max(), sizes[i]
+
+
 def test_k3_kernel_refuses_strided_input(cuda):
     """Strided input is no longer refused: the op makes its inputs
     contiguous before the launch, so a strided view gives the contiguous
@@ -1000,3 +1041,73 @@ def test_maskclip_on_the_card_matches_cpu(cuda):
     assert got.shape == ref.shape == (2, 50, 70, 11)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
     assert half.dtype == torch.bfloat16 and torch.isfinite(half).all()
+
+
+def _no_tf32():
+    """Turn TF32 off for matmuls and cuDNN; returns the old settings."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return old
+
+
+def test_ms_deform_attn_on_the_card_matches_cpu(cuda):
+    """The deformable sampling in f32 at three levels, a third of the
+    locations outside [0, 1]: within 1e-5 of max on the card."""
+    from openess_tpu_torch.ops.ms_deform_attn import ms_deform_attn
+
+    g = torch.Generator().manual_seed(2)
+    shapes = ((12, 16), (6, 8), (3, 4))
+    lin = sum(h * w for h, w in shapes)
+    value = torch.randn(2, lin, 8, 32, generator=g)
+    loc = torch.rand(2, 40, 8, 3, 4, 2, generator=g) * 1.6 - 0.3
+    w = torch.rand(2, 40, 8, 3, 4, generator=g)
+    ref = ms_deform_attn(value, shapes, loc, w)
+    got = ms_deform_attn(value.to(cuda), shapes, loc.to(cuda),
+                         w.to(cuda)).cpu()
+    assert got.shape == (2, 40, 256)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_fcclip_on_the_card_matches_cpu(cuda):
+    """The narrow FC-CLIP (trunk dims 32-64, conv and mask dims 64, 10
+    queries, 2 encoder and 3 decoder layers), its torch init perturbed, in
+    f32 on the card with TF32 off against the CPU on a 64x96 image: the
+    per-pixel class scores within 1e-4 of max; the text tower (width 64,
+    2 layers) likewise; bf16 on the card finite."""
+    from openess_tpu_torch.models.fcclip import CLIPTextEncoder, FCCLIP
+
+    kw = dict(trunk_depths=(1, 2, 1, 1), trunk_dims=(32, 32, 64, 64),
+              clip_embed_dim=48, conv_dim=64, mask_dim=64, num_queries=10,
+              dec_layers=3, enc_layers=2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        model = FCCLIP(**kw)
+        text = CLIPTextEncoder(vocab_size=600, width=64, heads=1, layers=2,
+                               embed_dim=48)
+        for p in list(model.parameters()) + list(text.parameters()):
+            p.data += 0.05 * torch.randn(p.shape)
+        img = torch.rand(1, 64, 96, 3) * 255
+        tokens = torch.zeros(3, 77, dtype=torch.long)
+        tokens[:, :5] = torch.randint(1, 590, (3, 5))
+        tokens[:, 5] = 599
+    tc = torch.randn(8, 48)
+    nt, overlap = (2, 3, 1, 2), np.array([1, 0, 1, 0])
+    old = _no_tf32()
+    try:
+        with torch.no_grad():
+            ref = model(img, tc, nt, overlap)
+            ref_t = text(tokens)
+            got = model.to(cuda)(img.to(cuda), tc.to(cuda), nt, overlap).cpu()
+            got_t = text.to(cuda)(tokens.to(cuda)).cpu()
+            half = FCCLIP(dtype=torch.bfloat16, **kw).to(cuda)
+            half.load_state_dict(model.state_dict())
+            h = half(img.to(cuda), tc.to(cuda), nt, overlap)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+    assert got.shape == ref.shape == (1, 64, 96, 4)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    assert (got_t - ref_t).abs().max() <= 1e-4 * ref_t.abs().max()
+    assert h.dtype == torch.float32 and torch.isfinite(h).all()

@@ -48,7 +48,7 @@ print(len(names))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=ROOT, env=env, timeout=120)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.strip()) >= 61  # every module through the offline tier
+    assert int(r.stdout.strip()) >= 71  # every module through FC-CLIP
 
 
 def _imported_roots(tree):
@@ -87,6 +87,20 @@ def test_no_matplotlib_in_source(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     assert "matplotlib" not in set(_imported_roots(tree))
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_clip_packages_in_source(path):
+    """FC-CLIP's tokenizer, backbone and decoders are the port's own: none
+    of the packages the reference reaches them through (``regex``,
+    ``ftfy``, ``open_clip``, ``timm``, ``detectron2``) is imported, and the
+    card machine has none of them."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = set(_imported_roots(tree)) & {"regex", "ftfy", "open_clip", "timm",
+                                        "detectron2"}
+    assert not bad, sorted(bad)
 
 
 def _port_sources():
@@ -217,6 +231,11 @@ NEW_MODULES = [
     "utils.viz",
     # the eleventh slice: the serving export
     "export_model",
+    # the thirteenth slice: FC-CLIP and the assets' preflight
+    "models.fcclip.backbone", "models.fcclip.convert",
+    "models.fcclip.inference", "models.fcclip.manifest", "models.fcclip.meta",
+    "models.fcclip.pixel_decoder", "models.fcclip.tokenizer",
+    "models.fcclip.transformer_decoder", "ops.ms_deform_attn", "preflight",
 ]
 
 

@@ -336,17 +336,3 @@ def test_eval_annotation_free_matches_the_jax_tool(trees, source,
     assert sorted(printed) == sorted(ref)
     for k in ref:
         assert abs(printed[k] - ref[k]) <= EVAL_POINTS_TOL, (k, printed, ref)
-
-
-@pytest.mark.parametrize("tool", ["pseudo_labels", "eval"])
-def test_fcclip_teacher_is_refused_naming_item_11c(tool, tmp_path):
-    main = {"pseudo_labels": generate_pseudo_labels.main,
-            "eval": eval_annotation_free.main}[tool]
-    args = (["--root", str(tmp_path)] if tool == "pseudo_labels"
-            else ["--settings_file", str(tmp_path / "x.yaml")])
-    with pytest.raises(SystemExit) as e:
-        main(args + ["--teacher", "fcclip", "--fcclip_ckpt", "f.pth",
-                     "--bpe_vocab", "bpe.txt.gz", "--device", "cpu"])
-    assert "11c" in str(e.value.code)
-    with pytest.raises(NotImplementedError, match="11c"):
-        labeler.build_fcclip_labeler("f.pth", "bpe.txt.gz", "dsec")

@@ -396,14 +396,60 @@ def test_inputs_are_checked_before_the_native_call():
             x, y, p, t, np.array([10, x.shape[1] + 1]), 5, 48, 96)
 
 
+def test_library_binds_once_under_concurrent_first_calls(monkeypatch):
+    """Eight threads make their first call at once, as the loader's
+    workers do: one of them binds the library's argument types, once, and
+    every thread gets that library; then each packs a batch, equal to the
+    batch packed on one thread. ctypes reads a function's converters without
+    holding them, so binding ``argtypes`` again while another thread calls
+    that function frees the converters in use (``ArgumentError ... 'dict'
+    object is not callable`` from a raw-wire loader worker)."""
+    import threading
+    import time
+
+    real, binds = tnative._bind_library, []
+
+    def slow_bind():
+        binds.append(threading.get_ident())
+        time.sleep(0.2)  # every other thread arrives while this one binds
+        return real()
+
+    monkeypatch.setattr(tnative, "_LIBRARY", None)
+    monkeypatch.setattr(tnative, "_bind_library", slow_bind)
+    events, kw = _small_events(np.random.default_rng(13))
+    ref = tnative.chunk_events_windows_host(*events, **kw)
+    monkeypatch.setattr(tnative, "_LIBRARY", None)
+    binds.clear()
+    start, libs, wires, errors = threading.Barrier(8), [], [], []
+
+    def work():
+        try:
+            start.wait()
+            libs.append(tnative.library())
+            wires.append(tnative.chunk_events_windows_host(*events, **kw))
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert len(binds) == 1 and len(libs) == 8
+    assert all(lib is libs[0] for lib in libs)
+    for wire in wires:
+        for a, b in zip(wire, ref):
+            np.testing.assert_array_equal(a, b)
+
+
 @pytest.fixture
 def fresh_build(tmp_path, monkeypatch):
     """An empty build directory and no library loaded in this process."""
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(_build, "_LIBS", {})
-    tnative.library.cache_clear()
+    monkeypatch.setattr(tnative, "_LIBRARY", None)
     yield tmp_path / "_build"
-    tnative.library.cache_clear()
 
 
 def test_missing_compiler_raises_and_nothing_falls_back(fresh_build,
