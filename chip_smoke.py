@@ -137,8 +137,11 @@ Data parallelism (since the fourteenth slice), after the ``frame2recon``
 phases; each rank is this script run as ``python3 chip_smoke.py
 --dp-rank DIR`` under torchrun's environment (a free localhost port), its
 jobs in ``DIR/spec.json``, its results in ``DIR/rank<r>.pt``, its output in
-``DIR/rank<r>.log`` (printed when a rank fails); the one-process
-references run in this process: D1-nccl, one rank over NCCL against the
+``DIR/rank<r>.log`` (printed when a rank fails); the launches run in the
+background (``dp_start``, ``dp_wait``) while this process runs the
+one-process references and, beside the M and SP ranks, the released
+checkpoints and the offline tier (``rank_phases``; their numbers are
+taken on a card and host the ranks share): D1-nccl, one rank over NCCL against the
 one-process flagship pretrain step (B = 8, bf16, augmentation on, 1 + 3
 steps) run before and after it in the same process, bitwise where that
 step repeats bitwise and otherwise no farther from it than its two runs
@@ -152,10 +155,15 @@ against two one-process runs and the f64 step of the same batch,
 the synced BatchNorm's running statistics against one process) and
 D2-finetune (F8's fine-tune with ``unfrozen_e2vid`` from D2-pretrain's
 checkpoint through ``Trainer`` on both ranks: a padded ``val_epoch`` whose
-confusion, summed over the ranks, counts one process's pixels and labels
-them as one process does but for at most ``DP_LABEL_FLIPS`` of them, with
-one process's own val_epoch again at B = 8 and at a rank's batch of 4 as
-witnesses, then 3 steps, K3's backward 60 a rank and step). Every rank's launches count in the kernels line. The D2
+confusion, summed over the ranks, counts one process's pixels; its bf16
+labels held per pixel by the M and SP phases' rule (``label_moves``:
+moved only where one process's top-two gap is within 4e of its bf16
+logits' distance from its f32 ones, TF32 off, and no farther from the f32
+labels than one process's), the same ``val_epoch`` in f32 on the ranks
+(no step) labelled as one process does but for at most
+``DP_LABEL_FLIPS`` of the pixels, one process's own bf16 val_epoch again
+at B = 8 and at a rank's batch of 4 printed as witnesses; then 2 steps,
+K3's backward 60 a rank and step). Every rank's launches count in the kernels line. The D2
 numbers are host-staged gloo collectives on one shared card, not a
 multi-card figure.
 
@@ -189,9 +197,10 @@ replicas together); their losses, computed by each, may round apart.
 Spatial partitioning (``parallel/spatial.py``): beside the C/2 check,
 K3's forward and backward at a model rank's band of E2VID's levels and K2
 at its band of the 440x640 maps (B = 2, M = 2), each against its plain
-version and beside its bound and its library call; after the M phases
-the SP phases, ``tp_phases(spatial=True)`` on M2's and DM4's jobs (their
-pretrain and recon one-process runs and f64 steps reused): SP2-pretrain,
+version and beside its bound and its library call; beside the M phases
+the SP phases, ``tp_jobs(spatial=True)`` on M2's and DM4's jobs (their
+pretrain and recon one-process runs and f64 steps reused, DSP4's bf16 one
+DM4's): SP2-pretrain,
 SP2-pretrain-recon and SP2-finetune (data 1 x model 2, each rank a band
 of the image rows of every activation; per rank the halo and image-sum
 bytes a step and the exchanges' ms; the f32 fine-tune's ``val_epoch``
@@ -213,7 +222,8 @@ tile, each into a NaN-filled grid), K3 vs plain and
 PyTorch's fused LSTM cell (B = 1 and 8 at 440x640, B = 8 and 1 at 200x352),
 K3 backward vs plain and the cell's backward (B = 8, bf16 and f32, and with
 a missing gradient), K3 forward and backward at C/2 and at a band (B = 2),
-K2 vs plain and at a band,
+K2 vs plain (with the image structure and flat; the pretrain steps' and
+DDD17 pretrain's shapes) and at a band,
 serving (S=1 with the plain gate path, S=1 with K3, S=8 with K3), a
 serving trace, an f32 reference check of the
 CUDA server against the CPU server, the host packer (C++ against numpy,
@@ -235,11 +245,12 @@ splat into a NaN-filled grid, edge cases), the DSEC grid-wire trainer
 DDD17 linear probe from disk (K6 and the host voxelizer, each at 1 and 4
 workers), L-raw-wire, T8-pretrain-recon, F8-finetune-recon,
 U8-uda-recon (each with its trace, spans and K2's time), the
-``frame2recon`` reference, D1-nccl, D2 (the ranks, then D2-pretrain,
-D2-pretrain-recon, D2-finetune), M2 (M2-pretrain, M2-pretrain-recon,
-M2-finetune), DM4-pretrain, SP2 (SP2-pretrain, SP2-pretrain-recon,
-SP2-finetune), DSP4-pretrain, the released checkpoints, the six offline and
-probe phases, the bench, and the summary (the tenth slice's phases sit beside the paths they extend: the
+``frame2recon`` reference, D2 (the ranks, then D2-pretrain,
+D2-pretrain-recon, D2-finetune), the rank phases (D1, M2 and SP2 started
+together, the released checkpoints and the offline phases run beside
+them, then DM4 and DSP4, one after the other; then the reports: D1-nccl, M2-pretrain, M2-pretrain-recon,
+M2-finetune, DM4-pretrain, SP2-pretrain, SP2-pretrain-recon,
+SP2-finetune, DSP4-pretrain), the MFU probe, the bench, and the summary (the tenth slice's phases sit beside the paths they extend: the
 trace after training, the s2d fine-tune, its weight gradients and the
 DSEC dumps after the fine-tune, the s2d reference after the fine-tune
 reference, the DDD17 dumps after the linear probe). K1, K4, K5 and K6 are
@@ -257,6 +268,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -277,6 +289,9 @@ K3_DDD17_SHAPES = ((100, 176, 64), (50, 88, 128), (25, 44, 256))  # 200x352
 K3_SENSOR_SHAPES = ((240, 320, 64), (120, 160, 128), (60, 80, 256))  # 480x640
 REF_REL_TOL = 1e-3          # f32 server, CUDA vs CPU, of max|logits|
 K2_REL_TOL = 1e-5           # K2 sums vs plain, of max|plain|: atomics order
+K2_FLUSH_BYTES = 1 << 30    # K2's flush: ~0.35 ms of device work, longer
+                            # than its wrapper's host work (K2 is read
+                            # behind the 256 MB one too)
 TRAIN_LOSS_REL_TOL = 1e-3   # f32 train step, CUDA vs CPU, each loss
 TRAIN_GRAD_REL_TOL = 1e-3   # ... gradients of the head's plain convs
 TRAIN_INORM_GRAD_REL_TOL = 1e-1  # ... of its instance-normalized convs
@@ -344,10 +359,11 @@ DP_EVENT_F32_GRAD_L2 = 4e-3  # ... all gradients, ranks vs one process, on
                             # 1.04e-3 to 1.21e-3, K1's f32 atomics)
 DP_RECON_F32_GRAD_L2 = 2e-3  # ... on frame2recon (measured 6.2e-4: the
                             # train-mode BatchNorms' sums in another order)
-DP_LABEL_FLIPS = 1e-5       # D2-finetune's val_epoch: the share of pixels
-                            # whose bf16 label may differ from one process's
-                            # (1 to 2 of 1 689 600 measured; one process
-                            # against itself flips as many)
+DP_LABEL_FLIPS = 1e-5       # the fine-tunes' val_epoch (D2, M2, SP2): the
+                            # share of pixels whose f32 label may differ
+                            # from one process's, and whose bf16 label may
+                            # move where one process's top-two gap is beyond
+                            # 4e (e its bf16 logits' distance from f32)
 DP_RANK_TIMEOUT_S = 900     # a D launch's ranks, every job included
 VIS_FILES = ("confusion", "confusion_norm", "semseg_pred_gt",
              "event_preview", "pca_latent")  # the JAX trainer's dumps
@@ -580,14 +596,76 @@ def block_superpixels(b, h, w, rows=10, cols=10):
     return np.broadcast_to(sp, (b, h, w)).copy()
 
 
-def k2_phase(torch, k2, dev, flush):
+def k2_times(torch, k2, dev, flushes, rows, ids, total, rpi, spi, tag):
+    """K2 on ``rows`` by ``ids`` through the image structure
+    (``rows_per_image``, ``segments_per_image``: the call
+    ``segment_mean_pool`` makes) and flat, each held to the plain version
+    (sums within ``K2_REL_TOL`` of the largest, counts exact); the first
+    timed beside the plain version, the library call (``index_add_`` of
+    the f32 cast plus a ``bincount``, timed here, used nowhere in the
+    port) and the byte bound, and printed with each time's share of the
+    bound. ``flushes``: the ``K2_FLUSH_BYTES`` one (``ms``: the device
+    work, done after the wrapper's host work is) and the 256 MB one of the
+    other kernels (``ms_256mb``: the host work charged where it outlasts
+    the flush; K2's times before its redesign were read behind it).
+    Returns ``{ms, ms_256mb, plain_ms, library_ms, bound_ms, bound_by,
+    max_abs_err}``."""
+    idl = ids.long()
+    d = rows.shape[1]
+    run_k = lambda: k2.segment_pool_sums(rows, ids, total,
+                                         rows_per_image=rpi,
+                                         segments_per_image=spi)
+    run_f = lambda: k2.segment_pool_sums(rows, ids, total)
+    run_p = lambda: k2.segment_pool_sums_plain(rows, ids, total)
+    run_l = lambda: (
+        torch.zeros((total, d), device=dev).index_add_(0, idl, rows.float()),
+        torch.bincount(idl, minlength=total),
+    )
+    sp_, cp = run_p()
+    sl, cl = run_l()
+    scale = sp_.abs().max().item()
+    lib_err = (sl - sp_).abs().max().item()
+    errs = {}
+    for name, run in (("image", run_k), ("flat", run_f)):
+        sk, ck = run()
+        torch.cuda.synchronize()
+        errs[name] = (sk - sp_).abs().max().item()
+        counts_ok = bool(torch.equal(ck, cp)) and bool(
+            torch.equal(cl.float(), cp))
+        if errs[name] > K2_REL_TOL * scale or not counts_ok:
+            raise AssertionError(
+                f"K2 ({name} call) disagrees with its plain version [{tag}]: "
+                f"{errs[name]}, counts {'equal' if counts_ok else 'DIFFER'}")
+    ms_k = cuda_ms(torch, run_k, flushes[0])
+    ms_s = cuda_ms(torch, run_k, flushes[1])
+    ms_p = cuda_ms(torch, run_p, flushes[0], iters=5, warmup=1)
+    ms_l = cuda_ms(torch, run_l, flushes[0], iters=5, warmup=1)
+    nbytes = (rows.numel() * rows.element_size() + ids.numel() * 4
+              + total * d * 4 + total * 4)
+    b_ms, b_by = bound(nbytes, rows.numel(), F32_OPS_PER_S)
+    print(f"K2 [{tag}] max|kernel-plain| {errs['image']:.3e} with the image "
+          f"structure, {errs['flat']:.3e} flat (max|plain| {scale:.2f}, "
+          f"bound {K2_REL_TOL:.0e} x max), counts equal OK; kernel_ms "
+          f"{ms_k:.4f} ({b_ms / ms_k:.0%} of the bound), behind 256 MB "
+          f"{ms_s:.4f} ({b_ms / ms_s:.0%}); plain_ms {ms_p:.4f}; library_ms "
+          f"{ms_l:.4f} (index_add_ + bincount, {b_ms / ms_l:.0%}, "
+          f"max|lib-plain| {lib_err:.3e}); bound_ms {b_ms:.4f} ({b_by}; "
+          f"{nbytes / 1e6:.1f} MB)")
+    return dict(ms=ms_k, ms_256mb=ms_s, plain_ms=ms_p, library_ms=ms_l,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=max(errs.values()))
+
+
+def k2_phase(torch, k2, dev, flushes):
     """K2 against its plain version at the train steps' shape, on block
     superpixels and on per-pixel random ids, bf16 (the voxel pretrain's
     features and the teacher's) and f32 (the DeepLabV3 student's features
-    on pretrain ``frame2recon``); the backward gather against autograd of
-    the plain version. Returns the kernel row (bf16, block superpixels,
-    with the f32 times beside)."""
-    phase("K2 segment_pool_sums vs plain ([8,440,640,256], S=800)")
+    on pretrain ``frame2recon``), and at DDD17 pretrain's (``[8,200,352,
+    256]``, ``superpixel_size`` 25, bf16, block superpixels); each call
+    with the image structure and flat (:func:`k2_times`); the backward
+    gather against autograd of the plain version. Returns the kernel row
+    (bf16, block superpixels, with the other times beside)."""
+    phase("K2 segment_pool_sums vs plain ([8,440,640,256], S = 100 an "
+          "image; DDD17's [8,200,352,256], S = 25 an image)")
     B, H, W, D, S = 8, 440, 640, 256, 100
     gen = torch.Generator(device=dev).manual_seed(1205)
     seg = {
@@ -595,68 +673,39 @@ def k2_phase(torch, k2, dev, flush):
         "random": torch.randint(0, S, (B, H, W), generator=gen, device=dev,
                                 dtype=torch.int32),
     }
-    row, worst = None, 0.0
+    row, worst = {}, 0.0
     for dtype in (torch.bfloat16, torch.float32):
         feats = torch.randn((B, H, W, D), generator=gen,
                             device=dev).to(dtype)
         rows = feats.view(-1, D)
         for pattern, sp in seg.items():
             ids, total = k2.global_segment_ids(sp, S)
-            idl = ids.long()
-            run_k = lambda: k2.segment_pool_sums(rows, ids, total)
-            run_p = lambda: k2.segment_pool_sums_plain(rows, ids, total)
-            # library yardstick: one index_add_ of the f32 cast plus a
-            # bincount (timed here, used nowhere in the port)
-            run_l = lambda: (
-                torch.zeros((total, D), device=dev).index_add_(
-                    0, idl, rows.float()),
-                torch.bincount(idl, minlength=total),
-            )
-            (sk, ck), (sp_, cp) = run_k(), run_p()
-            sl, cl = run_l()
-            torch.cuda.synchronize()
-            err = (sk - sp_).abs().max().item()
-            scale = sp_.abs().max().item()
-            lib_err = (sl - sp_).abs().max().item()
-            counts_ok = bool(torch.equal(ck, cp)) and bool(
-                torch.equal(cl.float(), cp))
-            ok = err <= K2_REL_TOL * scale and counts_ok
-            ms_k = cuda_ms(torch, run_k, flush)
-            ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
-            ms_l = cuda_ms(torch, run_l, flush, iters=5, warmup=1)
-            nbytes = (rows.numel() * rows.element_size() + ids.numel() * 4
-                      + total * D * 4 + total * 4)
-            b_ms, b_by = bound(nbytes, rows.numel(), F32_OPS_PER_S)
             tag = f"{str(dtype).split('.')[-1]}, {pattern} ids"
-            print(f"K2 [{tag}] max|kernel-plain| {err:.3e} (max|plain| "
-                  f"{scale:.2f}, bound {K2_REL_TOL:.0e} x max) counts "
-                  f"{'equal' if counts_ok else 'DIFFER'} "
-                  f"{'OK' if ok else 'FAIL'}; kernel_ms {ms_k:.4f} plain_ms "
-                  f"{ms_p:.4f} library_ms {ms_l:.4f} (index_add_ + bincount, "
-                  f"max|lib-plain| {lib_err:.3e}) bound_ms {b_ms:.4f} "
-                  f"({b_by}; {nbytes / 1e6:.1f} MB)")
-            if not ok:
-                raise AssertionError(
-                    f"K2 disagrees with its plain version [{tag}]: {err}")
-            worst = max(worst, err)
-            if dtype == torch.bfloat16 and pattern == "block":
-                row = dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l,
-                           bound_ms=b_ms, bound_by=b_by)
-            elif dtype == torch.bfloat16:
-                row.update(ms_random_ids=ms_k, plain_ms_random_ids=ms_p,
-                           library_ms_random_ids=ms_l)
-            elif pattern == "block":
-                row.update(ms_f32=ms_k, bound_ms_f32=b_ms)
-            else:
-                row.update(ms_f32_random_ids=ms_k)
+            got = k2_times(torch, k2, dev, flushes, rows, ids, total, H * W,
+                           S, tag)
+            worst = max(worst, got.pop("max_abs_err"))
+            # the keys of earlier rows kept: bf16 block superpixels bare
+            sfx = {(torch.bfloat16, "block"): "",
+                   (torch.bfloat16, "random"): "_random_ids",
+                   (torch.float32, "block"): "_f32",
+                   (torch.float32, "random"): "_f32_random_ids"}[
+                       (dtype, pattern)]
+            if sfx:
+                got.pop("bound_by")
+            row.update({(f"{k}{sfx}" if k.startswith("ms") else
+                         k.replace("_ms", f"_ms{sfx}")): v
+                        for k, v in got.items()})
         # backward: the gather, against autograd of the plain version
         ids, total = k2.global_segment_ids(seg["block"], S)
         ids[:1000] = -1  # skipped pixels must read a zero row
         cot = torch.randn((total, D), generator=gen, device=dev)
         grads = []
-        for fn in (k2.segment_pool_sums, k2.segment_pool_sums_plain):
+        for fn in (lambda f: k2.segment_pool_sums(
+                       f, ids, total, rows_per_image=H * W,
+                       segments_per_image=S),
+                   lambda f: k2.segment_pool_sums_plain(f, ids, total)):
             leaf = rows.detach().clone().requires_grad_(True)
-            sums, _ = fn(leaf, ids, total)
+            sums, _ = fn(leaf)
             (sums * cot).sum().backward()
             grads.append(leaf.grad)
         torch.cuda.synchronize()
@@ -668,16 +717,31 @@ def k2_phase(torch, k2, dev, flush):
         if not same or grads[0].dtype != dtype:
             raise AssertionError("K2 backward disagrees with the plain one")
         del feats, rows, grads, leaf, sums
+    # DDD17 pretrain: 200x352 after the crop, superpixel_size 25
+    B, H, W, S = 8, 200, 352, 25
+    sp = torch.from_numpy(block_superpixels(B, H, W, 5, 5)).to(dev)
+    rows = torch.randn((B * H * W, D), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    ids, total = k2.global_segment_ids(sp, S)
+    got = k2_times(torch, k2, dev, flushes, rows, ids, total, H * W, S,
+                   "DDD17 [8,200,352,256], bf16, block ids")
+    worst = max(worst, got.pop("max_abs_err"))
+    got.pop("bound_by")
+    row.update({(f"{k}_ddd17" if k.startswith("ms") else
+                 k.replace("_ms", "_ms_ddd17")): v for k, v in got.items()})
+    del rows
     return dict(
         name="K2 segment_pool_sums (superpixel pooling)", route="cuda",
         source="openess_tpu_torch/csrc/segment_pool.cu",
         replaces="openess_tpu/ops/segment_pool.py:82",
         max_abs_err=worst,
         check=f"ok: max|kernel-plain| <= {K2_REL_TOL:g} x max|plain|, counts "
-              "equal; bf16 (the voxel pretrain's features, the teacher's) "
-              "and f32 (the DeepLabV3 student's on pretrain frame2recon), "
-              "block and random ids; ms is bf16 on block superpixels, "
-              "ms_f32 f32", **row,
+              "equal, with the image structure and flat; bf16 (the voxel "
+              "pretrain's features, the teacher's) and f32 (the DeepLabV3 "
+              "student's on pretrain frame2recon), block and random ids, "
+              "and DDD17 pretrain's shape; ms is bf16 on block "
+              "superpixels with the image structure behind the 1 GiB "
+              "flush, ms_256mb behind the 256 MB one, ms_f32 f32", **row,
     )
 
 
@@ -4555,6 +4619,21 @@ def loader_batch(torch, host, mesh, dev):
     return batch
 
 
+def release(torch):
+    """Give the card back what this process no longer references (cyclic
+    garbage collected first, so that a finished run's model set goes too):
+    ranks launched beside it share the card. Returns the GiB it still
+    holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 30
+
+
+def ckpt_written(job):
+    """The marker rank 0 writes once the job's checkpoint is whole."""
+    return job["ckpt_dir"] + ".written"
+
+
 def dp_steps(torch, job, mesh, dev):
     """``1 + DP_STEPS`` train steps of a pretrain job on its global batch
     (this rank's rows under ``mesh``): the losses, the trainable gradients
@@ -4572,7 +4651,7 @@ def dp_steps(torch, job, mesh, dev):
     s = dp_settings(job)
     host = dp_host_batch(s, job)
     steps = job.get("steps", DP_STEPS)
-    torch.cuda.empty_cache()
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
     mset = build_models(s, seed=0, device=dev)
     if s.compute_dtype == "float32":
@@ -4658,6 +4737,8 @@ def dp_steps(torch, job, mesh, dev):
     if job.get("ckpt_dir"):
         ckpt.save_checkpoint(job["ckpt_dir"], mset, opt, sb.step, 0,
                              mesh=mesh)
+        if mesh.rank == 0:  # the file is whole: the fine-tunes may start
+            open(ckpt_written(job), "w").close()
         out["saved"] = {k: whole(k, p) for k, p in named}
     if job.get("profile"):  # two steps; one under a model axis (seconds)
         avg, wall, _ = device_profile(
@@ -4672,8 +4753,9 @@ def dp_finetune(torch, job, mesh, dev):
     """F8's fine-tune with ``unfrozen_e2vid`` from ``job['ckpt_dir']``
     through ``Trainer``: a padded ``val_epoch`` (``job['val']`` samples),
     then an epoch of ``job['steps']`` steps (``DP_STEPS`` by default; each
-    rank assembling its rows), then the timed steps on a resident batch
-    (one under a model axis; none where ``job['timed']`` is false). With
+    rank assembling its rows; none at 0, a job that only validates), then
+    the timed steps on a resident batch (one under a model axis; none where
+    ``job['timed']`` is false). With
     ``job['vis']`` the ``val_epoch`` writes its dumps to that directory
     (``_ranks`` or ``_one`` appended)."""
     from openess_tpu_torch.parallel import spatial, tp
@@ -4685,7 +4767,7 @@ def dp_finetune(torch, job, mesh, dev):
         os.makedirs(vis, exist_ok=True)
         s = dataclasses.replace(s, vis_dir=vis)
     host = dp_host_batch(s, job)
-    torch.cuda.empty_cache()
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
     B = job["batch"]
     steps = job.get("steps", DP_STEPS)
@@ -4704,7 +4786,8 @@ def dp_finetune(torch, job, mesh, dev):
     t0 = time.perf_counter()
     epoch = trainer.train_epoch()
     torch.cuda.synchronize()
-    epoch_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per = max(steps, 1)
+    epoch_ms = (time.perf_counter() - t0) * 1e3 / per
     traffic = dict(tp.traffic)
     halo = spatial.traffic["halo_bytes"]
     counts = {k: fn.launches for k, fn in counters.items()}
@@ -4730,10 +4813,10 @@ def dp_finetune(torch, job, mesh, dev):
                 counts=counts, params=params,
                 ms=[a.elapsed_time(b) for a, b in events],
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                gather_mb=traffic["gather_bytes"] / steps / 1e6,
-                reduce_mb=traffic["reduce_bytes"] / steps / 1e6,
-                sync_mb=traffic["sync_bytes"] / steps / 1e6,
-                halo_mb=halo / steps / 1e6,
+                gather_mb=traffic["gather_bytes"] / per / 1e6,
+                reduce_mb=traffic["reduce_bytes"] / per / 1e6,
+                sync_mb=traffic["sync_bytes"] / per / 1e6,
+                halo_mb=halo / per / 1e6,
                 sharded_mb=sum(p.numel() * p.element_size() for p, _ in
                                tp.sharded_params(
                                    trainer.mset.modules).values()) / 1e6)
@@ -4755,7 +4838,7 @@ def dp_f64_step(torch, job, dev):
     f64, to_f32 = torch.float64, torch.Tensor.float
     s = dp_settings(job)
     host = dp_host_batch(s, job)
-    torch.cuda.empty_cache()
+    release(torch)
     mset = build_models(s, seed=0, device=dev)
     small_residual_scales(mset)
     for m in mset.modules.values():
@@ -4784,7 +4867,7 @@ def dp_f64_step(torch, job, dev):
     if any(g.dtype != f64 for g in grads.values()):
         raise AssertionError("the f64 step left a gradient below f64")
     del mset, sb, batch
-    torch.cuda.empty_cache()
+    release(torch)
     return dict(losses=[{k: float(v) for k, v in losses.items()}],
                 grads=grads)
 
@@ -4804,7 +4887,7 @@ def dp_val_confusion(torch, job, dev, batch):
     cm = trainer.val_epoch()["cm"]
     ties = int((val_labels(torch, trainer)["margin"] <= 1).sum())
     del trainer
-    torch.cuda.empty_cache()
+    release(torch)
     return cm, ties
 
 
@@ -4841,6 +4924,61 @@ def val_labels(torch, trainer, logits=False):
                 if k in out:
                     out[k].append(v[valid].cpu())
     return {k: torch.cat(v) for k, v in out.items()}
+
+
+def label_moves(torch, one, one32, labels):
+    """The fine-tunes' per-pixel rule for bf16 ``val_epoch`` labels.
+    ``one`` and ``one32``: one process's :func:`val_labels` with logits,
+    in bf16 and in f32 (TF32 off); ``labels``: each parallel run's bf16
+    labels over the same pixels. At a pixel where one process's bf16
+    logits lie within e of its f32 ones (the bf16 forward's own error
+    there) and a run's bf16 logits round no farther, the two bf16 runs lie
+    within 2e of each other, and a label between them can move where one
+    process's top-two gap is within 4e; the runs' distance from the f32
+    labels, against one process's, checks that they round no farther. The
+    near ties (one bf16 step) and the gaps within 2e are read too. Returns
+    the counts, each the largest over ``labels``, and the text that prints
+    them."""
+    c = one["counted"]
+    err = (one["logits"] - one32["logits"]).abs().amax(dim=-1)
+    loose = one["gap"] <= 4 * err
+    half = one["gap"] <= 2 * err
+    tie = one["margin"] <= 1
+    moved = [(lab != one["labels"]) & c for lab in labels]
+
+    def most(mask):
+        return max(int((m & mask).sum()) for m in moved)
+
+    gaps = torch.cat([one["margin"][m] for m in moved])
+    m = dict(ties=int((tie & c).sum()), on_tie=most(tie),
+             off_tie=most(~tie), within=most(loose), beyond=most(~loose),
+             beyond_half=most(~half), n_loose=int((loose & c).sum()),
+             to_f32=int(((one["labels"] != one32["labels"]) & c).sum()),
+             ranks_f32=max(int(((lab != one32["labels"]) & c).sum())
+                           for lab in labels),
+             widest=f"{float(gaps.max()):.2f}" if gaps.numel() else "none")
+    m["text"] = (
+        f"per pixel, a rank's labels apart from one process's: on its near "
+        f"ties (top two bf16 logits equal or one step apart, {m['ties']}) "
+        f"{m['on_tie']}, elsewhere {m['off_tie']}, the widest one-process "
+        f"gap under a moved label {m['widest']} bf16 steps; where the gap "
+        f"is within 4e, e the bf16 logits' largest distance there from f32 "
+        f"({m['n_loose']} pixels), {m['within']}, beyond it {m['beyond']} "
+        f"(bound {DP_LABEL_FLIPS:g} of the pixels; beyond 2e "
+        f"{m['beyond_half']}); bf16 labels apart from one process's f32 "
+        f"labels: one process {m['to_f32']}, the ranks {m['ranks_f32']} "
+        f"(bound {DP_F64_FACTOR}x)")
+    return m
+
+
+def label_checks(m, same_pixels, pixels):
+    """The checks of :func:`label_moves`'s counts ``m``."""
+    return {
+        "bf16 val_epoch labels apart only within the bf16 error":
+        same_pixels and m["beyond"] <= DP_LABEL_FLIPS * pixels,
+        "bf16 labels no farther from f32 than one process's":
+        m["ranks_f32"] <= DP_F64_FACTOR * m["to_f32"],
+    }
 
 
 DP_JOBS = {"steps": dp_steps, "trainer": dp_finetune}
@@ -4923,13 +5061,15 @@ def dp_rank_main(out_dir):
     return 0
 
 
-def dp_launch(torch, world, backend, jobs, out_dir, model=1, spatial=False):
-    """Run ``jobs`` on ``world`` ranks of this script (torchrun's
+RANK_RUNS = []  # the launches under way: stopped if the script fails
+
+
+def dp_start(world, backend, jobs, out_dir, model=1, spatial=False):
+    """Start ``jobs`` on ``world`` ranks of this script (torchrun's
     environment, a free localhost port, ``backend``) on a mesh of ``model``
-    model ranks a data index (splitting image rows with ``spatial``);
-    returns each rank's results. A rank that fails, or outlives
-    ``DP_RANK_TIMEOUT_S``, fails the phase: every rank is stopped and
-    their output printed."""
+    model ranks a data index (splitting image rows with ``spatial``), in
+    the background: this process goes on while they run, and
+    :func:`dp_wait` collects them."""
     import socket
 
     os.makedirs(out_dir, exist_ok=True)
@@ -4939,38 +5079,77 @@ def dp_launch(torch, world, backend, jobs, out_dir, model=1, spatial=False):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    procs, logs = [], []
+    run = dict(out_dir=out_dir, procs=[], logs=[], t0=time.perf_counter(),
+               deadline=time.monotonic() + DP_RANK_TIMEOUT_S)
+    RANK_RUNS.append(run)
     for r in range(world):
         env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r),
                    LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        logs.append(open(os.path.join(out_dir, f"rank{r}.log"), "w+"))
-        procs.append(subprocess.Popen(
+        run["logs"].append(open(os.path.join(out_dir, f"rank{r}.log"), "w+"))
+        run["procs"].append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--dp-rank",
-             out_dir], env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + DP_RANK_TIMEOUT_S
+             out_dir], env=env, stdout=run["logs"][-1],
+            stderr=subprocess.STDOUT))
+    return run
+
+
+def dp_stop(run):
+    """Stop the ranks of ``run`` still running and close their logs."""
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in run["logs"]:
+        log.close()
+    if run in RANK_RUNS:
+        RANK_RUNS.remove(run)
+
+
+def dp_wait(torch, run):
+    """The results of :func:`dp_start`'s ranks, each rank's list. A rank
+    that fails, or outlives ``DP_RANK_TIMEOUT_S`` from its start, fails the
+    phase: every rank is stopped and their output printed. Sets
+    ``run['seconds']``, from the start to the last rank's end."""
+    procs, logs = run["procs"], run["logs"]
     try:
         for p in procs:
             try:
-                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+                p.wait(timeout=max(1.0, run["deadline"] - time.monotonic()))
             except subprocess.TimeoutExpired:
                 break
+        run["seconds"] = time.perf_counter() - run["t0"]
+        bad = [(r, p.poll()) for r, p in enumerate(procs) if p.poll() != 0]
+        if bad:
+            for r, log in enumerate(logs):
+                log.seek(0)
+                print(f"-- rank {r} output (tail):\n{log.read()[-4000:]}")
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+        dp_stop(run)
     if bad:
-        for r, log in enumerate(logs):
-            log.seek(0)
-            print(f"-- rank {r} output (tail):\n{log.read()[-4000:]}")
-    for log in logs:
-        log.close()
-    if bad:
-        raise AssertionError(f"ranks failed (rank, exit code): {bad}")
-    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
-                       weights_only=False) for r in range(world)]
+        raise AssertionError(f"ranks failed (rank, exit code; None: still "
+                             f"running at the deadline): {bad}")
+    return [torch.load(os.path.join(run["out_dir"], f"rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def dp_launch(torch, world, backend, jobs, out_dir, model=1, spatial=False):
+    """:func:`dp_start` and :func:`dp_wait`: each rank's results."""
+    return dp_wait(torch, dp_start(world, backend, jobs, out_dir, model,
+                                   spatial))
+
+
+def dp_ready(torch, path, run):
+    """Wait for the file ``path`` that a rank of ``run`` writes (a
+    checkpoint's marker): fails if the ranks end without it or pass their
+    deadline first."""
+    while not os.path.exists(path):
+        if time.monotonic() > run["deadline"] or any(
+                p.poll() is not None for p in run["procs"]):
+            if not os.path.exists(path):
+                dp_wait(torch, run)  # a failed rank's output, and raises
+                raise AssertionError(f"the ranks ended without {path}")
+        time.sleep(0.2)
 
 
 def rel(a, b):
@@ -5078,19 +5257,21 @@ def dp_f32_errors(torch, rank_results, refs, exact, grad_bound):
     return out
 
 
-def d1_nccl_phase(torch, smi, out_root):
+# D1-nccl's one rank: the flagship pretrain step at B = 8 with no group,
+# with the one-rank NCCL group, and with no group again
+D1_JOB = dict(kind="steps", settings="pretrain", batch=8,
+              modes=["none", "group", "none"])
+
+
+def d1_nccl_report(torch, smi, ranks, seconds):
     """D1-nccl: one rank over NCCL against the one-process step (no
-    group), in one process: the flagship pretrain step at B = 8, run with
-    no group, with the one-rank group, and with no group again (the
-    one-process step's own repeatability). Returns the group run's
-    launches."""
+    group), in one process (:data:`D1_JOB`; the one-process step run again
+    gives its own repeatability). Returns the group run's launches."""
     phase("D1-nccl: one rank over NCCL vs the one-process step (flagship "
           "pretrain frame2voxel at full width, B = 8, bf16, augmentation "
           f"on; 1 warm-up + {DP_STEPS} steps)")
-    job = dict(kind="steps", settings="pretrain", batch=8,
-               modes=["none", "group", "none"])
-    (res,) = dp_launch(torch, 1, "nccl", [job],
-                       os.path.join(out_root, "d1"))
+    print(f"the rank ran {seconds:.1f} s, beside the M2 and SP2 ranks")
+    (res,) = ranks  # one rank, one job, three runs
     none, group, again = res[0]
     same = bitwise(torch, group, none)
     repeatable = bitwise(torch, again, none)
@@ -5169,10 +5350,12 @@ def steps_report(torch, name, bf16, f32, refs, refs32, exact, grad_bound,
                 f"the model group (timed step {res['timed_step_ms']:.1f} "
                 f"ms, of it {res['exchange_ms']:.1f} ms in those "
                 f"exchanges)")
+        idle = ("not profiled" if "idle" not in res
+                else f"{res['idle']:.3f}")
         print(f"rank {r}: {res['rows']} rows, step p50 "
               f"{np.median(res['ms']):.1f} ms, gradient all-reduce "
               f"{res['allreduce_ms']:.2f} ms ({res['allreduce_mb']:.1f} "
-              f"MB f32){tp_part}, idle share {res['idle']:.3f}, peak "
+              f"MB f32){tp_part}, idle share {idle}, peak "
               f"{res['peak_gib']:.2f} GiB; launches {res['counts']}")
     print(f"one process (B = {ref['rows']}): step p50 "
           f"{np.median(ref['ms']):.1f} ms, peak {ref['peak_gib']:.2f} GiB; "
@@ -5228,10 +5411,12 @@ def steps_report(torch, name, bf16, f32, refs, refs32, exact, grad_bound,
 def d2_phases(torch, dev, smi, out_root):
     """D2-pretrain, D2-pretrain-recon and D2-finetune: two gloo ranks on
     the one card, global B = 8 (4 a rank), against the one-process runs
-    on the same seed and draws, run here after the ranks. The ranks run
-    every job in one launch (the fine-tune starts from D2-pretrain's
-    rank 0 checkpoint). Returns each phase's launches, summed over the
-    ranks."""
+    on the same seed and draws, run here: the pretrain and recon jobs'
+    while the ranks run, the fine-tunes' and the f64 steps after them. The
+    ranks run every job in one launch (the fine-tune starts from
+    D2-pretrain's rank 0 checkpoint; its val_epoch runs again in f32,
+    without a step). Returns each phase's launches, summed over the ranks,
+    and the f32 pretrain job's one-process runs and f64 step."""
     ckpt_dir = os.path.join(out_root, "d2_ckpt")
     # D2_STEPS bf16 steps after the warm-up on the recon job and the
     # fine-tune (DP_STEPS before the M phases); the pretrain job keeps
@@ -5246,26 +5431,42 @@ def d2_phases(torch, dev, smi, out_root):
              steps=D2_STEPS),
         dict(DP_F32_JOB, settings="recon"),
         dict(kind="trainer", settings="finetune", batch=8, val=6,
-             steps=D2_STEPS, overrides=dict(pretrained_file=ckpt_dir)),
+             steps=D2_STEPS, labels=True,
+             overrides=dict(pretrained_file=ckpt_dir)),
+        # the same val_epoch in f32 (TF32 off), no step: the labels the
+        # bf16 ones are held against per pixel
+        dict(kind="trainer", settings="finetune", batch=8, val=6, steps=0,
+             timed=False, labels=True,
+             overrides=dict(pretrained_file=ckpt_dir,
+                            compute_dtype="float32")),
     ]
     phase("D2: two gloo ranks on the one card (global B = 8, 4 a rank): "
           "D2-pretrain, D2-pretrain-recon, D2-finetune, each rank a "
-          "process of this script")
+          "process of this script; the pretrain and recon jobs' "
+          "one-process runs in this process beside them")
+    print(f"this process holds {release(torch):.2f} GiB of the card")
     t0 = time.perf_counter()
-    ranks = dp_launch(torch, 2, "gloo", jobs, os.path.join(out_root, "d2"))
-    print(f"ranks done in {time.perf_counter() - t0:.1f} s (every job); "
-          "the one-process references follow")
+    run = dp_start(2, "gloo", jobs, os.path.join(out_root, "d2"))
+    # every pretrain and recon job twice (the one-process step's own
+    # spread) while the ranks run; the fine-tunes, which start from the
+    # ranks' checkpoint, and the f64 steps (the most memory) after them
+    refs = {i: [dp_steps(torch, j, None, dev) for _ in range(2)]
+            for i, j in enumerate(jobs) if j["kind"] == "steps"}
+    print(f"the pretrain and recon jobs' one-process runs done in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ranks = dp_wait(torch, run)
+    print(f"ranks done in {run['seconds']:.1f} s (every job); the "
+          "fine-tunes' one-process runs follow")
     t0 = time.perf_counter()
-    # every pretrain job twice: the one-process step's own spread
-    refs = [[DP_JOBS[j["kind"]](torch, j, None, dev)
-             for _ in range(2 if j["kind"] == "steps" else 1)]
-            for j in jobs]
+    refs = [refs[i] if i in refs else [dp_finetune(torch, j, None, dev)]
+            for i, j in enumerate(jobs)]
     print(f"references done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     # the witnesses: the f64 step of each f32 job, and the fine-tune's
     # val_epoch in one process again, at its batch and at a rank's
     exact = {i: dp_f64_step(torch, j, dev) for i, j in enumerate(jobs)
-             if j.get("overrides", {}).get("compute_dtype") == "float32"}
+             if j["kind"] == "steps"
+             and j.get("overrides", {}).get("compute_dtype") == "float32"}
     val_batches = (jobs[4]["batch"], jobs[4]["batch"] // 2)
     cms, ties = {}, {}
     for b in val_batches:
@@ -5273,8 +5474,9 @@ def d2_phases(torch, dev, smi, out_root):
     print(f"witnesses done in {time.perf_counter() - t0:.1f} s")
     per = [[r[i][0] for r in ranks] for i in range(len(jobs))]
     launches = {}
-    label = ("host-staged gloo on one card shared by both ranks, not a "
-             f"multi-card figure; on {smi}")
+    label = ("host-staged gloo on one card shared by both ranks (and by "
+             "the one-process pretrain and recon steps), not a multi-card "
+             f"figure; on {smi}")
 
     phase("D2-pretrain: flagship pretrain frame2voxel at full width, bf16, "
           "augmentation on, K1/K3/K2 on each rank")
@@ -5293,15 +5495,27 @@ def d2_phases(torch, dev, smi, out_root):
          ("f32", per[3], refs[3][0], DP_F32_STATS_REL)], label)
 
     phase("D2-finetune: F8's fine-tune with unfrozen_e2vid from D2-pretrain's "
-          "rank 0 checkpoint, through Trainer on both ranks")
+          "rank 0 checkpoint, through Trainer on both ranks; its val_epoch "
+          "in bf16 and in f32 (TF32 off)")
     ft, (ref,) = per[4], refs[4]
+    ft32, (ref32,) = per[5], refs[5]
     pixels = int(ref["cm"].sum())
-    counted = all(r["cm"].sum() == pixels for r in ft)
+    counted = all(r["cm"].sum() == pixels for r in ft + ft32)
 
     def apart(a, b):  # pixels labelled otherwise
         return int(np.abs(a - b).sum()) // 2
 
     flips = max(apart(r["cm"], ref["cm"]) for r in ft)
+    flips32 = max(apart(r["cm"], ref32["cm"]) for r in ft32)
+    # per pixel, as the M and SP phases hold theirs: the ranks' bf16
+    # labels, each rank its rows (rank order is the global batch's)
+    one = ref["val"]
+    moves = label_moves(torch, one, ref32["val"], [torch.cat(
+        [r["val"]["labels"] for r in ft])])
+    same_pixels = all(torch.equal(v, one["counted"]) for v in (
+        ref32["val"]["counted"],
+        torch.cat([r["val"]["counted"] for r in ft]),
+        torch.cat([r["val"]["counted"] for r in ft32])))
     loss = max(rel(r["epoch"][k], v) for r in ft
                for k, v in ref["epoch"].items())
     for r, res in enumerate(ft):
@@ -5313,22 +5527,25 @@ def d2_phases(torch, dev, smi, out_root):
           f"step, step p50 {np.median(ref['ms']):.1f} ms; {label}")
     big, small = val_batches
     print(f"val_epoch over 6 samples (the batch padded to {big}; rank 1 "
-          f"holds 2 valid rows), bf16: pixels counted {pixels} on every "
-          f"side: {counted}; pixels labelled otherwise than by one process "
-          f"at B = {big}: the ranks' summed confusion {flips} (bound "
-          f"{DP_LABEL_FLIPS:g} of the pixels); without ranks, one process "
-          f"run again at B = {big} {apart(cms[big], ref['cm'])} and at "
-          f"B = {small} (a rank's batch, the same rows) "
-          f"{apart(cms[small], ref['cm'])}; the ranks against that B = "
-          f"{small} run {max(apart(r['cm'], cms[small]) for r in ft)}; "
-          f"near ties (top two bf16 logits equal or one step apart) at "
-          f"B = {big} {ties[big]}, at B = {small} {ties[small]}; epoch "
-          f"losses max rel {loss:.3e}")
+          f"holds 2 valid rows): pixels counted {pixels} on every side: "
+          f"{counted}; f32 (TF32 off): labelled otherwise than by one "
+          f"process {flips32} (bound {DP_LABEL_FLIPS:g} of the pixels); "
+          f"bf16: labelled otherwise by the ranks' summed confusion "
+          f"{flips}; without ranks, one process run again at B = {big} "
+          f"{apart(cms[big], ref['cm'])} and at B = {small} (a rank's "
+          f"batch, the same rows) {apart(cms[small], ref['cm'])}; the ranks "
+          f"against that B = {small} run "
+          f"{max(apart(r['cm'], cms[small]) for r in ft)}; near ties (top "
+          f"two bf16 logits equal or one step apart) at B = {big} "
+          f"{ties[big]}, at B = {small} {ties[small]}; {moves['text']}; "
+          f"epoch losses max rel {loss:.3e}")
     n = D2_STEPS
     report_checks("D2-finetune", {
-        # the padding masked exactly; the labels one process's but where
-        # a bf16 near-tie falls otherwise (the witnesses above)
-        "val_epoch confusion": counted and flips <= DP_LABEL_FLIPS * pixels,
+        # the padding masked exactly; the f32 labels one process's but
+        # where f32 rounding ties; the bf16 labels by the per-pixel rule
+        "f32 val_epoch confusion": counted
+        and flips32 <= DP_LABEL_FLIPS * pixels,
+        **label_checks(moves, same_pixels, pixels),
         "epoch losses": loss <= DP_BF16_LOSS_REL,
         "ranks bitwise equal": all(
             torch.equal(r["params"][k], ft[0]["params"][k])
@@ -5464,48 +5681,28 @@ def k3_tp_phase(torch, k3, dev, flush, shapes=K3_TP_SHAPES, key="tp_c_half",
     return out["fwd"], out["bwd"]
 
 
-def k2_band_phase(torch, k2, dev, flush):
+def k2_band_phase(torch, k2, dev, flushes):
     """K2 at a model rank's band under spatial partitioning (M = 2, B = 2
     at 440x640: 220 rows, S = 100 an image) against its plain version,
-    bf16 and f32 on block superpixels, each time beside its bound and the
-    library call's (``index_add_`` + ``bincount``). Returns the numbers
-    for K2's row, each key ending in ``band``."""
+    bf16 and f32 on block superpixels, with the image structure and flat
+    (:func:`k2_times`). Returns the numbers for K2's row, each key ending
+    in ``band`` or ``band_f32``."""
     phase("K2 at a model rank's band (spatial, M = 2, [2,220,640,256], "
           "S = 100 an image) vs plain")
     B, H, W, D, S = TP_BATCH, 220, 640, 256, 100
     gen = torch.Generator(device=dev).manual_seed(1616)
     sp = torch.from_numpy(block_superpixels(B, 2 * H, W)[:, :H]).to(dev)
     ids, total = k2.global_segment_ids(sp, S)
-    idl = ids.long()
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         rows = torch.randn((B * H * W, D), generator=gen,
                            device=dev).to(dtype)
-        run_k = lambda: k2.segment_pool_sums(rows, ids, total)
-        run_p = lambda: k2.segment_pool_sums_plain(rows, ids, total)
-        run_l = lambda: (torch.zeros((total, D), device=dev).index_add_(
-            0, idl, rows.float()), torch.bincount(idl, minlength=total))
-        (sk, ck), (sp_, cp) = run_k(), run_p()
-        err = (sk - sp_).abs().max().item()
-        scale = sp_.abs().max().item()
-        if err > K2_REL_TOL * scale or not torch.equal(ck, cp):
-            raise AssertionError(f"K2 at a band disagrees with its plain "
-                                 f"version ({dtype}): {err}")
-        ms_k = cuda_ms(torch, run_k, flush)
-        ms_p = cuda_ms(torch, run_p, flush, iters=5, warmup=1)
-        ms_l = cuda_ms(torch, run_l, flush, iters=5, warmup=1)
-        nbytes = (rows.numel() * rows.element_size() + ids.numel() * 4
-                  + total * D * 4 + total * 4)
-        b_ms, b_by = bound(nbytes, rows.numel(), F32_OPS_PER_S)
         tag = str(dtype).split(".")[-1]
-        print(f"K2 band [{tag}] max|kernel-plain| {err:.3e} (max|plain| "
-              f"{scale:.2f}); kernel_ms {ms_k:.4f} plain_ms {ms_p:.4f} "
-              f"library_ms {ms_l:.4f} bound_ms {b_ms:.4f} ({b_by}; "
-              f"{nbytes / 1e6:.1f} MB; kernel at {b_ms / ms_k:.0%} of it)")
+        got = k2_times(torch, k2, dev, flushes, rows, ids, total, H * W, S,
+                       f"band, {tag}")
+        got.pop("bound_by")
         sfx = "band" if dtype == torch.bfloat16 else "band_f32"
-        out.update({f"ms_{sfx}": ms_k, f"plain_ms_{sfx}": ms_p,
-                    f"library_ms_{sfx}": ms_l, f"bound_ms_{sfx}": b_ms,
-                    f"max_abs_err_{sfx}": err})
+        out.update({f"{k}_{sfx}": v for k, v in got.items()})
         del rows
     return out
 
@@ -5554,20 +5751,14 @@ def tp_checkpoint_check(torch, job, saved):
     return len(loaded), equal
 
 
-def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
-    """M2-pretrain, M2-pretrain-recon and M2-finetune (data 1 x model 2,
-    one launch of two gloo ranks, global B = 2), then DM4-pretrain (data
-    2 x model 2, four ranks, global B = 4), against the one-process runs on
-    the same seed and draws, run here after the ranks; DM4's f32 step is
-    D2's f32 job, whose one-process runs and f64 step D2 made
-    (``d2_f32``). ``spatial``: the same phases with each model rank
-    holding a band of the image rows (SP2-pretrain, SP2-pretrain-recon,
-    SP2-finetune, DSP4-pretrain), whose pretrain and recon jobs are the M
-    phases' and take their one-process runs and f64 steps (``reuse``).
-    Returns each phase's launches summed over the ranks, and the
-    one-process runs and f64 steps of the jobs."""
-    m2, dm4 = ("SP2", "DSP4") if spatial else ("M2", "DM4")
-    ckpt_dir = os.path.join(out_root, f"{m2.lower()}_ckpt")
+def tp_jobs(out_root, spatial=False):
+    """The jobs of the M2 launch (data 1 x model 2, two gloo ranks, global
+    B = 2): M2-pretrain's bf16 steps (with the checkpoint M2-finetune
+    starts from) and f32 steps, M2-pretrain-recon's likewise, and
+    M2-finetune in bf16 and in f32. ``spatial``: SP2's, the same jobs with
+    each model rank holding a band of the image rows (the f32 fine-tune's
+    ``val_epoch`` writing its dumps)."""
+    ckpt_dir = os.path.join(out_root, "sp2_ckpt" if spatial else "m2_ckpt")
     f32 = dict(compute_dtype="float32")
     jobs = [
         # DP_STEPS: the fine-tune starts from this checkpoint, and its bf16
@@ -5590,44 +5781,57 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
     ]
     if spatial:  # the f32 fine-tune's val_epoch writes its dumps
         jobs[-1]["vis"] = os.path.join(out_root, "sp2_vis")
-    split = ("a band of the image rows of every activation on each rank"
-             if spatial else "both rows on each rank")
-    phase(f"{m2}: data 1 x model 2, two gloo ranks on the one card (global "
-          f"B = 2, {split}): {m2}-pretrain, {m2}-pretrain-recon, "
-          f"{m2}-finetune, each rank a process of this script")
-    t0 = time.perf_counter()
-    ranks = dp_launch(torch, 2, "gloo", jobs,
-                      os.path.join(out_root, m2.lower()), model=2,
-                      spatial=spatial)
-    print(f"ranks done in {time.perf_counter() - t0:.1f} s (every job); "
-          "the one-process references follow")
-    t0 = time.perf_counter()
-    # the bf16 jobs once, the f32 steps twice (the one-process step's own
-    # spread), the fine-tunes once (the bf16 one with its labels and near
-    # ties per pixel); the M phases' runs of the same pretrain and recon
-    # jobs where given
-    refs = [reuse["refs"][i] if reuse and j["kind"] == "steps" else
-            [DP_JOBS[j["kind"]](torch, j, None, dev)
-             for _ in range(2 if j["kind"] == "steps"
-                            and j.get("overrides") == f32 else 1)]
-            for i, j in enumerate(jobs)]
-    exact = reuse["exact"] if reuse else {
-        i: dp_f64_step(torch, j, dev) for i, j in enumerate(jobs)
-        if j["kind"] == "steps" and j.get("overrides") == f32}
+    return jobs
+
+
+def tp_dm4_jobs():
+    """The jobs of the DM4 and DSP4 launches (data 2 x model 2, four gloo
+    ranks, global B = 4): D2's f32 job, whose one-process runs and f64 step
+    D2 made, then bf16 steps."""
+    return [dict(DP_F32_JOB, steps=TP_F32_STEPS),
+            # not profiled (cut for time: four host-bound ranks; M2's and
+            # SP2's steps give the idle share)
+            dict(kind="steps", settings="pretrain", batch=TP_DM4_BATCH,
+                 steps=TP_DM4_BF16_STEPS)]
+
+
+def tp_refs(torch, dev, jobs, run=None):
+    """The one-process runs of the M2 (or SP2) jobs on the same seed and
+    draws: the bf16 steps once, the f32 steps twice (the one-process step's
+    own spread), the fine-tunes once (the bf16 one with its labels and near
+    ties per pixel). With ``run`` (the launch under way) only the fine-tunes,
+    each once the ranks' checkpoint is whole; without it only the steps."""
+    f32 = dict(compute_dtype="float32")
+    if run is None:
+        return {i: [dp_steps(torch, j, None, dev)
+                    for _ in range(2 if j.get("overrides") == f32 else 1)]
+                for i, j in enumerate(jobs) if j["kind"] == "steps"}
+    dp_ready(torch, ckpt_written(jobs[0]), run)
+    return {i: [dp_finetune(torch, j, None, dev)]
+            for i, j in enumerate(jobs) if j["kind"] == "trainer"}
+
+
+def tp_f64_steps(torch, dev, jobs):
+    """The f64 step of each f32 steps job of the M2 (or SP2) launch."""
+    return {i: dp_f64_step(torch, j, dev) for i, j in enumerate(jobs)
+            if j["kind"] == "steps"
+            and j.get("overrides") == dict(compute_dtype="float32")}
+
+
+def tp_report(torch, smi, jobs, ranks, refs, exact, spatial=False):
+    """M2-pretrain, M2-pretrain-recon and M2-finetune (``spatial``: SP2's)
+    from the launch's results (``ranks``) against the one-process runs
+    (``refs``, a list by job) and the f64 steps (``exact``). Returns each
+    phase's launches summed over the ranks."""
+    m2 = "SP2" if spatial else "M2"
     n_ckpt, ckpt_equal = tp_checkpoint_check(torch, jobs[0],
                                              ranks[0][0][0]["saved"])
-    print(f"references, the f64 steps and the witnesses done in "
-          f"{time.perf_counter() - t0:.1f} s")
     per = [[r[i][0] for r in ranks] for i in range(len(jobs))]
-    label = ("host-staged gloo on one card shared by the ranks, not a "
+    label = ("host-staged gloo on one card shared by the ranks of the M "
+             "and SP phases and D1 (and this process's work), not a "
              f"multi-card figure; on {smi}")
     none = dict.fromkeys(("K1", "K2", "K3", "K3_bwd", "K4", "K5", "K6"), 0)
     launches = {}
-
-    def loss2(runs, ref):
-        return max(rel(r["losses"][1][k], v) for r in runs
-                   for k, v in ref["losses"][1].items())
-
     phase(f"{m2}-pretrain: flagship pretrain frame2voxel at full width, "
           "bf16, augmentation on, " + (
               "every activation a band of rows (K1 on each rank's rows "
@@ -5639,7 +5843,7 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
     launches[f"{m2.lower()}_pretrain"] = steps_report(
         torch, f"{m2}-pretrain", per[0], per[1], refs[0], refs[1], exact[1],
         DP_EVENT_F32_GRAD_L2, none | {"K1": 1, "K3": 60, "K2": 2}, [], label)
-    l2 = loss2(per[1], refs[1][0])
+    l2 = tp_loss2(per[1], refs[1][0])
     print(f"f32 step 2's losses vs one process: {l2:.3e} (bound "
           f"{TP_LOSS2_REL:g}); checkpoint written by rank 0 loaded into one "
           f"process: {n_ckpt} tensors, each equal to the ranks' gathered "
@@ -5663,7 +5867,7 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
         [("bf16", per[2], refs[2][0], DP_BF16_STATS_REL,
           SP_BF16_TIES if spatial else ()),
          ("f32", per[3], refs[3][0], DP_F32_STATS_REL)], label)
-    l2 = loss2(per[3], refs[3][0])
+    l2 = tp_loss2(per[3], refs[3][0])
     print(f"f32 step 2's losses vs one process: {l2:.3e} (bound "
           f"{TP_LOSS2_REL:g})")
     report_checks(f"{m2}-pretrain-recon step 2", {
@@ -5685,35 +5889,12 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
 
     flips = max(apart(r["cm"], ref["cm"]) for r in ft)
     flips32 = max(apart(r["cm"], ref32["cm"]) for r in ft32)
-    # per pixel: each rank's bf16 labels against one process's. At a
-    # pixel where one process's bf16 logits lie within e of its f32 ones
-    # (the bf16 forward's own error there) and a rank's bf16 logits round
-    # no farther, the two bf16 runs lie within 2e of each other, and a
-    # label between them can move where one process's top-two gap is
-    # within 4e; the ranks' distance from the f32 labels, against one
-    # process's, checks that they round no farther. The near ties (one
-    # bf16 step) and the gaps within 2e are read too.
-    one, one32 = ref["val"], ref32["val"]
-    err = (one["logits"] - one32["logits"]).abs().amax(dim=-1)
-    loose = one["gap"] <= 4 * err
-    half = one["gap"] <= 2 * err
-    tie = one["margin"] <= 1
-    ties = int((tie & one["counted"]).sum())
+    # per pixel: each rank's bf16 labels against one process's
+    one = ref["val"]
+    moves = label_moves(torch, one, ref32["val"],
+                        [r["val"]["labels"] for r in ft])
     same_pixels = all(torch.equal(r["val"]["counted"], one["counted"])
                       for r in ft + ft32)
-    moved = [(r["val"]["labels"] != one["labels"]) & one["counted"]
-             for r in ft]
-    on_tie = max(int((m & tie).sum()) for m in moved)
-    off_tie = max(int((m & ~tie).sum()) for m in moved)
-    within = max(int((m & loose).sum()) for m in moved)
-    beyond = max(int((m & ~loose).sum()) for m in moved)
-    beyond_half = max(int((m & ~half).sum()) for m in moved)
-    n_loose = int((loose & one["counted"]).sum())
-    to_f32 = int(((one["labels"] != one32["labels"]) & one["counted"]).sum())
-    ranks_f32 = max(int(((r["val"]["labels"] != one32["labels"])
-                         & one["counted"]).sum()) for r in ft)
-    gaps = torch.cat([one["margin"][m] for m in moved])
-    widest = f"{float(gaps.max()):.2f}" if gaps.numel() else "none"
     loss = max(rel(r["epoch"][k], v) for r in ft
                for k, v in ref["epoch"].items())
     loss32 = max(rel(r["epoch"][k], v) for r in ft32
@@ -5736,17 +5917,8 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
           f"labelled otherwise than by one process {flips32} (bound "
           f"{DP_LABEL_FLIPS:g} of the pixels), step 1's losses max rel "
           f"{loss32:.3e} (bound {DP_F32_LOSS_REL:g}); bf16: labelled "
-          f"otherwise by the confusion {flips}; per pixel, a rank's "
-          f"labels apart from one process's: on its near ties (top two "
-          f"bf16 logits equal or one step apart, {ties}) {on_tie}, "
-          f"elsewhere {off_tie}, the widest one-process gap under a moved "
-          f"label {widest} bf16 steps; where the gap is within 4e, e the "
-          f"bf16 logits' largest distance there from f32 ({n_loose} "
-          f"pixels), {within}, beyond it {beyond} (bound "
-          f"{DP_LABEL_FLIPS:g} of the pixels; beyond 2e {beyond_half}); "
-          f"bf16 labels apart from one process's f32 labels: one process "
-          f"{to_f32}, the ranks {ranks_f32} (bound {DP_F64_FACTOR}x); "
-          f"epoch losses max rel {loss:.3e} (bound {DP_BF16_LOSS_REL:g})")
+          f"otherwise by the confusion {flips}; {moves['text']}; epoch "
+          f"losses max rel {loss:.3e} (bound {DP_BF16_LOSS_REL:g})")
     n = TP_FINETUNE_STEPS
     if spatial:
         dumps = dumps_apart(jobs[-1]["vis"], 440)
@@ -5767,10 +5939,7 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
         "f32 val_epoch confusion": counted
         and flips32 <= DP_LABEL_FLIPS * pixels,
         "f32 step-1 losses": loss32 <= DP_F32_LOSS_REL,
-        "bf16 val_epoch labels apart only within the bf16 error":
-        same_pixels and beyond <= DP_LABEL_FLIPS * pixels,
-        "bf16 labels no farther from f32 than one process's":
-        ranks_f32 <= DP_F64_FACTOR * to_f32,
+        **label_checks(moves, same_pixels, pixels),
         "bf16 epoch losses": loss <= DP_BF16_LOSS_REL,
         "ranks bitwise equal": all(
             torch.equal(r["params"][k], runs[0]["params"][k])
@@ -5782,37 +5951,155 @@ def tp_phases(torch, dev, smi, out_root, d2_f32, spatial=False, reuse=None):
     })
     launches[f"{m2.lower()}_finetune"] = {k: sum(r["counts"][k] for r in ft)
                                           for k in ft[0]["counts"]}
-    kept = dict(refs=refs, exact=exact)
-    del ranks, refs, exact, per, ft
+    return launches
 
-    dm4_jobs = [
-        dict(DP_F32_JOB, steps=TP_F32_STEPS),
-        dict(kind="steps", settings="pretrain", batch=TP_DM4_BATCH,
-             steps=TP_DM4_BF16_STEPS, profile=True),
-    ]
+
+def tp_loss2(runs, ref):
+    """Step 2's losses of the ranks' runs against one process's, the
+    largest relative difference."""
+    return max(rel(r["losses"][1][k], v) for r in runs
+               for k, v in ref["losses"][1].items())
+
+
+def dm4_report(torch, smi, jobs, ranks, bf16_ref, d2_f32, spatial=False):
+    """DM4-pretrain (``spatial``: DSP4-pretrain) from the launch's results
+    (``ranks``): the f32 step against D2's one-process runs and f64 step of
+    the same job (``d2_f32``), the bf16 steps against the one-process run
+    ``bf16_ref``. Returns the launches summed over the ranks."""
+    dm4 = "DSP4" if spatial else "DM4"
     phase(f"{dm4}-pretrain: data 2 x model 2, four gloo ranks on the one "
           f"card (global B = {TP_DM4_BATCH}, 2 rows a data shard"
           + (", a band of their rows a model rank" if spatial else "")
           + "): the f32 step against one process, then bf16")
-    t0 = time.perf_counter()
-    ranks = dp_launch(torch, 4, "gloo", dm4_jobs,
-                      os.path.join(out_root, dm4.lower()), model=2,
-                      spatial=spatial)
-    bf16_ref = [dp_steps(torch, dm4_jobs[1], None, dev)]
-    print(f"ranks and the bf16 reference done in "
-          f"{time.perf_counter() - t0:.1f} s")
-    per = [[r[i][0] for r in ranks] for i in range(len(dm4_jobs))]
-    launches[f"{dm4.lower()}_pretrain"] = steps_report(
+    label = ("host-staged gloo on one card shared by the ranks of DM4, "
+             "DSP4 and M2 (and this process's work), not a multi-card "
+             f"figure; on {smi}")
+    none = dict.fromkeys(("K1", "K2", "K3", "K3_bwd", "K4", "K5", "K6"), 0)
+    per = [[r[i][0] for r in ranks] for i in range(len(jobs))]
+    launches = steps_report(
         torch, f"{dm4}-pretrain", per[1], per[0], bf16_ref, d2_f32["refs"],
         d2_f32["exact"], DP_EVENT_F32_GRAD_L2,
         none | {"K1": 1, "K3": 60, "K2": 2}, [], label)
-    l2 = loss2(per[0], d2_f32["refs"][0])
+    l2 = tp_loss2(per[0], d2_f32["refs"][0])
     rows = sorted({r["rows"] for r in per[1]})
     print(f"f32 step 2's losses vs one process: {l2:.3e} (bound "
           f"{TP_LOSS2_REL:g}); rows a rank {rows}")
     report_checks(f"{dm4}-pretrain step 2", {
         "f32 step-2 losses": l2 <= TP_LOSS2_REL})
-    return launches, kept
+    return launches
+
+
+def rank_phases(torch, dev, smi, out_root, d2_f32, offline):
+    """D1-nccl, the M phases (M2, DM4) and the SP phases (SP2, DSP4): the
+    D1, M2 and SP2 launches side by side on the card, while this process
+    runs the pretrain and recon one-process runs and the two halves of the
+    offline tier (``offline``, two callables returning their launches);
+    once M2 has ended, one after the other: the fine-tunes' one-process
+    runs, DM4, its bf16 one-process run, DSP4, the f64 steps; then the
+    reports.
+    The SP jobs are the M jobs on bands, so their pretrain and recon
+    one-process runs and f64 steps are the M jobs' (DSP4's bf16 one
+    DM4's). Returns every phase's launches, the offline tier's included."""
+    m_jobs, sp_jobs = tp_jobs(out_root), tp_jobs(out_root, spatial=True)
+    dm4_jobs = tp_dm4_jobs()
+    phase("D1-nccl (one NCCL rank), M2 and SP2 (two gloo ranks each) "
+          "started side by side on the one card, this process running "
+          "their pretrain and recon one-process runs and the offline tier "
+          "meanwhile; then the fine-tunes' one-process runs, DM4 and DSP4 "
+          "(four gloo ranks each) one after the other")
+    print(f"this process holds {release(torch):.2f} GiB of the card")
+    t0 = time.perf_counter()
+    d1 = dp_start(1, "nccl", [D1_JOB], os.path.join(out_root, "d1"))
+    m2 = dp_start(2, "gloo", m_jobs, os.path.join(out_root, "m2"), model=2)
+    sp2 = dp_start(2, "gloo", sp_jobs, os.path.join(out_root, "sp2"),
+                   model=2, spatial=True)
+    with cache_weight_draws():
+        refs = tp_refs(torch, dev, m_jobs)
+    print(f"the M jobs' pretrain and recon one-process runs done at "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = offline[0]()
+    d1_ranks, sp2_ranks = dp_wait(torch, d1), dp_wait(torch, sp2)
+    print(f"D1's rank ran {d1['seconds']:.1f} s, SP2's "
+          f"{sp2['seconds']:.1f} s")
+    launches |= offline[1]()
+    m2_ranks = dp_wait(torch, m2)
+    # from here one thing at a time: the M2 and SP2 fine-tunes' f32 ranks
+    # beside a one-process fine-tune, and DM4's f32 ranks beside anything
+    # of size (one-process runs, or M2's or DSP4's ranks), overfill the
+    # card's memory
+    phase(f"M2's ranks ran {m2['seconds']:.1f} s; the M2 and SP2 "
+          "fine-tunes' one-process runs, then DM4, DM4's bf16 one-process "
+          "run, DSP4 and the M jobs' f64 steps, one after the other")
+    t0 = time.perf_counter()
+    with cache_weight_draws():
+        sp_refs = refs | tp_refs(torch, dev, sp_jobs, sp2)
+        refs |= tp_refs(torch, dev, m_jobs, m2)
+    print(f"fine-tunes done in {time.perf_counter() - t0:.1f} s; this "
+          f"process holds {release(torch):.2f} GiB of the card")
+    dm4_ranks = dp_launch(torch, 4, "gloo", dm4_jobs,
+                          os.path.join(out_root, "dm4"), model=2)
+    t0 = time.perf_counter()
+    with cache_weight_draws():
+        bf16_ref = [dp_steps(torch, dm4_jobs[1], None, dev)]
+    print(f"DM4's bf16 one-process run done in "
+          f"{time.perf_counter() - t0:.1f} s; this process holds "
+          f"{release(torch):.2f} GiB of the card")
+    dsp4_ranks = dp_launch(torch, 4, "gloo", dm4_jobs,
+                           os.path.join(out_root, "dsp4"), model=2,
+                           spatial=True)
+    t0 = time.perf_counter()
+    with cache_weight_draws():
+        exact = tp_f64_steps(torch, dev, m_jobs)
+    print(f"f64 steps done in {time.perf_counter() - t0:.1f} s")
+    refs = [refs[i] for i in range(len(m_jobs))]
+    sp_refs = [sp_refs[i] for i in range(len(sp_jobs))]
+    launches["d1_nccl"] = d1_nccl_report(torch, smi, d1_ranks,
+                                         d1["seconds"])
+    launches |= tp_report(torch, smi, m_jobs, m2_ranks, refs, exact)
+    launches["dm4_pretrain"] = dm4_report(torch, smi, dm4_jobs, dm4_ranks,
+                                          bf16_ref, d2_f32)
+    launches |= tp_report(torch, smi, sp_jobs, sp2_ranks, sp_refs, exact,
+                          spatial=True)
+    launches["dsp4_pretrain"] = dm4_report(
+        torch, smi, dm4_jobs, dsp4_ranks, bf16_ref, d2_f32, spatial=True)
+    return launches
+
+
+def offline_first(torch, dev, smi, root, zero_counts, read_counts):
+    """The released checkpoints, then the offline tier's first half:
+    reconstructions, superpixels, MaskCLIP's pseudo-labels and scoring
+    (their files under ``root``). Returns their launches."""
+    released_phase(torch, dev)
+    launches = {}
+    e2vid_path = seeded_e2vid_file(
+        torch, os.path.join(root, "E2VID_lightweight.pth.tar"))
+    launches["offline_recon_dsec"] = offline_recon_dsec_phase(
+        torch, dev, smi, e2vid_path, zero_counts, read_counts)
+    launches["offline_recon_file"] = offline_recon_file_phase(
+        torch, smi, e2vid_path, root, zero_counts, read_counts)
+    write_frame_trees(root, np.random.default_rng(15))
+    offline_slic_phase(smi, root)
+    files = write_maskclip_files(torch, root)
+    launches["offline_pl"] = offline_pl_phase(
+        torch, dev, smi, root, files, zero_counts, read_counts)
+    launches["offline_eval"] = offline_eval_phase(
+        torch, dev, smi, root, files, zero_counts, read_counts)
+    return launches
+
+
+def offline_second(torch, dev, smi, root, zero_counts, read_counts):
+    """The offline tier's second half, on the frames the first wrote under
+    ``root``: FC-CLIP's pseudo-labels, its f32 check and its scoring, and
+    preflight. Returns their launches."""
+    launches = {}
+    fc = write_fcclip_files(torch, root)
+    launches["offline_fcclip_pl"] = offline_fcclip_pl_phase(
+        torch, dev, smi, root, fc, zero_counts, read_counts)
+    fcclip_f32_phase(torch, dev, smi, root, fc)
+    launches["offline_eval_fcclip"] = offline_eval_fcclip_phase(
+        torch, dev, smi, root, fc, zero_counts, read_counts)
+    preflight_phase(torch, smi, root, fc)
+    return launches
 
 
 def main():
@@ -6001,8 +6288,13 @@ def main():
         "a model rank's band (spatial, M = 2, B = 2 at 440x640)")
     kernels["K3"].update(k3_fwd_band)
     kernels["K3_bwd"].update(k3_bwd_band)
-    kernels["K2"] = k2_phase(torch, k2, dev, flush)
-    kernels["K2"].update(k2_band_phase(torch, k2, dev, flush))
+    t_k2 = time.perf_counter()
+    k2_flushes = (torch.empty(K2_FLUSH_BYTES, dtype=torch.uint8, device=dev),
+                  flush)
+    kernels["K2"] = k2_phase(torch, k2, dev, k2_flushes)
+    kernels["K2"].update(k2_band_phase(torch, k2, dev, k2_flushes))
+    del k2_flushes
+    print(f"K2 phases: {time.perf_counter() - t_k2:.1f} s")
 
     phase("serving: openess_tpu_torch.serve_stream at full width, bf16")
     print("settings: the values of configs/pretrain/DSEC/frame2voxel_fcclip_"
@@ -6284,45 +6576,20 @@ def main():
     del recon_host
     recon_reference_phase(torch, dev)
 
-    # data parallelism: D1 (one NCCL rank), then the D2 phases (two gloo
-    # ranks on the one card)
-    with tempfile.TemporaryDirectory() as dp_root:
-        launches["d1_nccl"] = d1_nccl_phase(torch, smi, dp_root)
+    # data parallelism: the D2 phases (two gloo ranks on the one card);
+    # then D1 (one NCCL rank), channel TP (the M phases) and spatial
+    # partitioning (the SP phases, on the same jobs), their ranks running
+    # while this process runs the released checkpoints and the offline
+    # tier
+    with tempfile.TemporaryDirectory() as dp_root, \
+            tempfile.TemporaryDirectory() as root:
         d2, d2_f32 = d2_phases(torch, dev, smi, dp_root)
         launches.update(d2)
-        # channel TP: the M phases on gloo ranks sharing the card; then
-        # spatial partitioning, the SP phases, on the same jobs
-        with cache_weight_draws():
-            tp_launches, m_refs = tp_phases(torch, dev, smi, dp_root,
-                                            d2_f32)
-            launches.update(tp_launches)
-            launches.update(tp_phases(torch, dev, smi, dp_root, d2_f32,
-                                      spatial=True, reuse=m_refs)[0])
-    released_phase(torch, dev)
-
-    # the offline tier: reconstructions, superpixels, MaskCLIP
-    with tempfile.TemporaryDirectory() as root:
-        e2vid_path = seeded_e2vid_file(
-            torch, os.path.join(root, "E2VID_lightweight.pth.tar"))
-        launches["offline_recon_dsec"] = offline_recon_dsec_phase(
-            torch, dev, smi, e2vid_path, zero_counts, read_counts)
-        launches["offline_recon_file"] = offline_recon_file_phase(
-            torch, smi, e2vid_path, root, zero_counts, read_counts)
-        write_frame_trees(root, np.random.default_rng(15))
-        offline_slic_phase(smi, root)
-        files = write_maskclip_files(torch, root)
-        launches["offline_pl"] = offline_pl_phase(
-            torch, dev, smi, root, files, zero_counts, read_counts)
-        launches["offline_eval"] = offline_eval_phase(
-            torch, dev, smi, root, files, zero_counts, read_counts)
-        fc = write_fcclip_files(torch, root)
-        launches["offline_fcclip_pl"] = offline_fcclip_pl_phase(
-            torch, dev, smi, root, fc, zero_counts, read_counts)
-        fcclip_f32_phase(torch, dev, smi, root, fc)
-        launches["offline_eval_fcclip"] = offline_eval_fcclip_phase(
-            torch, dev, smi, root, fc, zero_counts, read_counts)
-        preflight_phase(torch, smi, root, fc)
-        del fc
+        launches.update(rank_phases(torch, dev, smi, dp_root, d2_f32, (
+            lambda: offline_first(torch, dev, smi, root, zero_counts,
+                                  read_counts),
+            lambda: offline_second(torch, dev, smi, root, zero_counts,
+                                   read_counts))))
     launches["mfu_probe"] = mfu_probe_phase(torch, smi, zero_counts,
                                             read_counts)
     bench_phase(torch)
@@ -6354,4 +6621,8 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dp-rank":
         sys.exit(dp_rank_main(sys.argv[2]))
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:  # a failed phase stops the ranks still running
+        for run in list(RANK_RUNS):
+            dp_stop(run)

@@ -143,9 +143,14 @@ def entry(source: str, name: str, *argtypes):
 
 def launch(fn, device: torch.device, *args):
     """Call the C entry ``fn`` with ``args`` on the current stream of
-    ``device``; raise on a nonzero ``cudaError_t``."""
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``device`` (made the current device for the call where it is not);
+    raise on a nonzero ``cudaError_t``."""
+    stream = torch.cuda.current_stream(device)
+    if torch.cuda.current_device() == stream.device_index:
+        err = fn(*args, stream.cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {err}")
 

@@ -647,6 +647,92 @@ def test_k2_kernel_matches_plain(cuda, dtype, shape):
     assert (sums - ps).abs().max() <= 1e-5 * ps.abs().max()
 
 
+def _k2_check(rows, ids, total, **image):
+    """One K2 call (with the image structure given in ``image``) against
+    the plain version: one launch, counts exact, sums within 1e-5 of the
+    largest sum (atomics order)."""
+    before = k2.segment_pool_sums.launches
+    sums, counts = k2.segment_pool_sums(rows, ids, total, **image)
+    ps, pc = k2.segment_pool_sums_plain(rows, ids, total)
+    torch.cuda.synchronize()
+    assert k2.segment_pool_sums.launches == before + 1
+    assert sums.dtype == counts.dtype == torch.float32
+    assert torch.equal(counts, pc)
+    assert (sums - ps).abs().max() <= 1e-5 * ps.abs().max()
+    return pc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 7, 5), (3, 16, 33, 256, 20),
+                                   (1, 31, 17, 300, 3), (2, 5, 70, 2, 4)],
+                         ids=str)
+def test_k2_kernel_with_images_matches_plain(cuda, dtype, shape):
+    """The odd shapes with the image structure (each image's window in
+    shared memory), per-image ids past ``segments_per_image`` crossing
+    into the next image's window and ids outside the range."""
+    b, h, w, d, s = shape
+    rng = np.random.default_rng(1717)
+    feats = torch.from_numpy(rng.normal(size=(b, h, w, d))).to(cuda, dtype)
+    seg = rng.integers(0, s, (b, h, w))
+    seg[0, 0, :4] = (-1, s + 1, 10 ** 6, s)  # s + 1, s: the next image's
+    seg = torch.from_numpy(seg).to(cuda)
+    ids, total = k2.global_segment_ids(seg, s)
+    pc = _k2_check(feats.view(-1, d), ids, total, rows_per_image=h * w,
+                   segments_per_image=s)
+    if b > 1:  # image 0's pixels counted in image 1's segments 0 and 1
+        assert pc[s:s + 2].sum() == (seg[1] < 2).sum() + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_image_without_a_valid_id(cuda, dtype):
+    """An image whose every id is skipped adds nothing; its neighbours'
+    sums and counts are whole."""
+    b, hw, d, s = 3, 700, 64, 6
+    rng = np.random.default_rng(5)
+    rows = torch.from_numpy(rng.normal(size=(b * hw, d))).to(cuda, dtype)
+    seg = torch.from_numpy(rng.integers(0, s, (b, hw))).to(cuda)
+    ids, total = k2.global_segment_ids(seg, s)
+    ids[hw:2 * hw] = -1
+    pc = _k2_check(rows, ids, total, rows_per_image=hw, segments_per_image=s)
+    assert (pc[s:2 * s] == 0).all() and pc.sum() == 2 * hw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_narrowed_tile_and_capped_window(cuda, dtype):
+    """1 000 segments an image at 256 channels: the table narrows to a
+    32-channel tile and its window is capped below the image's ids, so
+    the ids past it go from their runs to device memory."""
+    b, hw, d, s = 2, 4000, 256, 1000
+    plan = k2.pool_plan(b * hw, d, b * s, elem_size=2 if dtype ==
+                        torch.bfloat16 else 4, rows_per_image=hw,
+                        segments_per_image=s)
+    assert plan.tile == 32 and plan.window < s
+    rng = np.random.default_rng(6)
+    rows = torch.from_numpy(rng.normal(size=(b * hw, d))).to(cuda, dtype)
+    seg = torch.from_numpy(rng.integers(0, s, (b, hw))).to(cuda)
+    ids, total = k2.global_segment_ids(seg, s)
+    pc = _k2_check(rows, ids, total, rows_per_image=hw, segments_per_image=s)
+    assert pc[plan.window:s].sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_kernel_at_the_flagship_shape(cuda, dtype):
+    """``[8,440,640,256]``, S = 100 an image, random ids: the image-aware
+    call and the flat one against the plain version."""
+    from chip_smoke import block_superpixels
+
+    b, h, w, d, s = 8, 440, 640, 256, 100
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    rows = torch.randn((b * h * w, d), generator=gen,
+                       device=cuda).to(dtype)
+    for seg in (torch.randint(0, s, (b, h, w), generator=gen, device=cuda),
+                torch.from_numpy(block_superpixels(b, h, w)).to(cuda)):
+        ids, total = k2.global_segment_ids(seg, s)
+        _k2_check(rows, ids, total, rows_per_image=h * w,
+                  segments_per_image=s)
+    _k2_check(rows, ids, total)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_mean_pool_and_gradient_on_the_card(cuda, dtype):
     """``segment_mean_pool`` on CUDA (kernel forward, gather backward)
